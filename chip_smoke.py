@@ -46,15 +46,18 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
    the first; per step 7 segment-sum launches and 4 each of FPS, ball
    query and 3-NN; then an eval step whose confusion matrix sums to B*N.
    The 7 segment-sum calls of one more step, each against its plain
-   version within 1e-5 of the call's largest value. On 1/64
-   grid clouds, FPS from index 0 and no dropout, the gradients of the
-   kernel path against the plain path's, per parameter
-   (``tests/test_train_parity.py:136-152``: atol 5e-5 + rtol 2e-4 of the
-   largest). Times: the train step on both paths over several windows, a
-   profiler trace of the train step, and the segment sum at each of its 7
-   shapes beside its bound, its plain version, the one sparse product
-   that computes it (``torch.sparse.mm``) and, at the 3 unweighted
-   shapes, ``index_add_``.
+   version within 1e-5 of the call's largest value, and the segment sum
+   at C of 1, 3, 6 and 130 (its scalar form), with every index equal,
+   with indices outside [0, M) and at B=1. On 1/64 grid clouds, FPS from
+   index 0 and no dropout, the gradients of the kernel path against the
+   plain path's, per parameter (``tests/test_train_parity.py:136-152``:
+   atol 5e-5 + rtol 2e-4 of the largest). Times: the train step on both
+   paths over several windows, a profiler trace of the train step, and
+   the segment sum at each of its 7 shapes beside its bound, its plain
+   version, the one sparse product that computes it (``torch.sparse.mm``;
+   the two timed in turns) and, at the 3 unweighted shapes,
+   ``index_add_``; the wrapper (its memset and its kernel) and the sparse
+   product also in device time, each traced alone.
 
 8. the fused Dense + BN statistics (``csrc/bn_stats.cu``): first the SR
    cast on the card against the CPU, bit for bit; then the kernel against
@@ -82,7 +85,7 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
 10. Path F, the fused eval set abstraction: a ``Predictor`` with
    ``impl="fused"`` of phase 4's weights serves 4 requests of (16, 4096, 9)
    grid clouds: per forward 1 fused grid SA layer (SA1), 3 fused dense
-   ones (SA2-SA4), 1 cell-offsets, 4 FPS and 4 3-NN launches and no ball
+   ones (SA2-SA4), 1 grid prep, 4 FPS and 4 3-NN launches and no ball
    query; log-probs within the parity bars of the plain path's. On a
    request of continuous clouds it meets the bars against the unfused
    kernel ``Predictor`` (the same distance function, so the same
@@ -92,21 +95,35 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
    sentinel row), within 5e-4 off the radius boundary;
 11. Path G, 8192-point clouds with ``impl="auto"``: one request of
    (16, 8192, 9) grid clouds, per forward 1 grid ball query (SA1), 1
-   cell-offsets, 3 ``ballquery.cu``, 4 FPS (at N=8192 too) and 4 3-NN
+   grid prep, 3 ``ballquery.cu``, 4 FPS (at N=8192 too) and 4 3-NN
    launches, log-probs within the bars of the plain path's; every kernel
    call of a continuous-cloud forward held against its plain version; the
    grid ball query on the two clustered clouds of
-   ``tests/test_kernels.py:80-129`` scaled to N=8192;
+   ``tests/test_kernels.py:80-129`` scaled to N=8192; the grid prep
+   kernel against its plain version, all five tensors bit for bit, at
+   N=4096, 8192 and 32768 (S=1024) on uniform, clustered, 1/64-grid
+   (points on cell faces), degenerate (every point equal) and one-cell
+   clouds, and with centers out of every ball;
 12. times of the new kernels at each shape of Paths F and G: wrapper,
    plain version, bound, ``torch.searchsorted`` (the one PyTorch call for
-   the cell offsets, held equal to their plain version first) and, as
+   the cell offsets, held equal to their plain version first, timed in
+   turns with the grid prep's wrapper) and, as
    yardsticks, the unfused kernel path of each fused layer
    (``ballquery.cu``, gather, cuBLAS chain, K-max) and ``ballquery.cu``
    beside the grid ball query, by CUDA events and again in device time
    from a profiler trace of each call (the grid wrappers with their
-   ``grid_prep``, which is also traced alone); the fused and unfused
-   ``Predictor``'s clouds/sec at N=4096 and the N=8192 one's over windows;
-   profiler traces of both paths' forwards with each kernel's device µs.
+   prep; the prep kernel alone, which must hold one device event, the
+   plain prep and ``torch.searchsorted``); the ball-query crossover curve
+   (the grid route and ``ballquery.cu`` at N = 4096, 8192, 16384, S = N/4,
+   uniform and clustered clouds, equal indices, events and device time);
+   the fused and unfused ``Predictor``'s clouds/sec at N=4096 and the
+   N=8192 one's over windows; profiler traces of both paths' forwards with
+   each kernel's device µs;
+13. the launch path: host ns of 1000 calls of each part of the segment
+   sum's and the grid prep's wrappers (checks, allocation, the old launch's
+   device switch and ``Stream`` object, the raw calls that replace them,
+   the ctypes call, ``build.launch``, the whole wrapper; the grid's five
+   views, made only on demand) beside an empty call and one PyTorch op.
 
 Every kernel's least time on the card (``bound_ms``) is the larger of the
 bytes it must move over 3.35 TB/s and the operations it does over
@@ -140,7 +157,7 @@ from pointnet12_tpu_torch.kernels.fps_cuda import fps_cuda
 from pointnet12_tpu_torch.kernels.fused_sa_cuda import (
     fused_sa_eval_dense_cuda, fused_sa_eval_grid_cuda,
 )
-from pointnet12_tpu_torch.kernels.grid_cuda import ballquery_grid_cuda, cell_offsets_cuda
+from pointnet12_tpu_torch.kernels.grid_cuda import Grid, ballquery_grid_cuda, grid_prep_cuda
 from pointnet12_tpu_torch.kernels.segsum_cuda import segment_matmul_cuda
 from pointnet12_tpu_torch.kernels.threenn_cuda import three_nn_cuda
 from pointnet12_tpu_torch.models import get_model, model_precision_kwargs
@@ -153,7 +170,7 @@ from pointnet12_tpu_torch.ops.distance import square_distance
 from pointnet12_tpu_torch.ops.fps import fps_torch
 from pointnet12_tpu_torch.ops.fused_sa import fused_sa_eval_torch
 from pointnet12_tpu_torch.ops.gather import index_points
-from pointnet12_tpu_torch.ops.grid import G as GRID_RES, cell_offsets_torch, grid_prep
+from pointnet12_tpu_torch.ops.grid import G as GRID_RES, cell_offsets_torch, grid_prep, grid_prep_torch
 from pointnet12_tpu_torch.ops.interpolate import three_nn_torch
 from pointnet12_tpu_torch.ops.segsum import segment_matmul_torch
 from pointnet12_tpu_torch.train import loop
@@ -203,13 +220,15 @@ KERNELS = {
         source="pointnet12_tpu_torch/csrc/bn_stats.cu",
         replaces="pointnet12_tpu/kernels/bn_stats_fused.py:144",
     ),
-    # the grid's offsets table: SA1 of Path F (the grid fused layer) and of
+    # the whole grid prep (bounds, keys, the two stable sorts, the offsets
+    # table) in one launch: SA1 of Path F (the grid fused layer) and of
     # Path G (the grid ball query)
-    "cell_offsets": dict(
-        wrapper=cell_offsets_cuda, kernel="cell_offsets_kernel",
+    "grid_prep": dict(
+        wrapper=grid_prep_cuda, kernel="grid_prep_kernel",
         forward=0, step=0, fused_step=0, fused_forward=1, grid_forward=1,
-        source="pointnet12_tpu_torch/csrc/ballquery_grid.cu",
+        source="pointnet12_tpu_torch/csrc/grid_prep.cu",
         replaces="pointnet12_tpu/kernels/ballquery_grid.py:209",
+        also_replaces="pointnet12_tpu/kernels/ballquery_grid.py:242-315",
     ),
     "ballquery_grid": dict(
         wrapper=ballquery_grid_cuda, kernel="ballquery_grid_kernel",
@@ -232,11 +251,11 @@ KERNELS = {
     ),
 }
 SERVE = [name for name, k in KERNELS.items() if k["forward"]]
-NEW = ("cell_offsets", "ballquery_grid", "fused_sa_dense", "fused_sa_grid")
+NEW = ("grid_prep", "ballquery_grid", "fused_sa_dense", "fused_sa_grid")
 FUSED = ("fused_sa_dense", "fused_sa_grid")
 PLAIN = {"fps": fps_torch, "ballquery": ballquery_torch, "three_nn": three_nn_torch,
          "segment_matmul": segment_matmul_torch, "dense_bn_stats": dense_bn_stats_torch,
-         "cell_offsets": cell_offsets_torch, "ballquery_grid": ballquery_torch,
+         "grid_prep": grid_prep_torch, "ballquery_grid": ballquery_torch,
          "fused_sa_dense": fused_sa_eval_torch, "fused_sa_grid": fused_sa_eval_torch}
 
 
@@ -264,6 +283,8 @@ SEGSUM_TOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 2e-4, 5e-5  # tests/test_train_parity.py:136-152
 FUSED_ATOL = 5e-4  # the fused layers' bar, tests/test_kernels.py:321-426
 TRAIN_STEPS = 10
+CROSSOVER_N = (4096, 8192, 16384)  # the ball-query routes' curve, S = N / 4
+HOST_REPS = 1000  # calls of each part of the launch path
 # of the largest mean |y| and E[y^2] over the columns: the kernel's statistics
 # against the plain one-pass form of its own y (fp32 sums in other orders)
 BN_STATS_TOL = 1e-5
@@ -299,6 +320,18 @@ def time_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def in_turns(fns, iters, rounds=4):
+    """Median ms of each of ``fns`` (CUDA events, :func:`time_ms` of
+    ``iters`` calls), timed in turns over ``rounds`` rounds whose order
+    alternates (a, b, b, a, ...), so that a drift of the host's pace falls
+    on both alike."""
+    times = [[] for _ in fns]
+    for k in range(rounds):
+        for i in (range(len(fns)) if k % 2 == 0 else reversed(range(len(fns)))):
+            times[i].append(time_ms(fns[i], iters=iters))
+    return [statistics.median(t) for t in times]
 
 
 def phase_device():
@@ -342,11 +375,11 @@ def level_clouds(dev, gen):
 
 def check_call(phase, name, args, got):
     """Hold one kernel call's output ``got`` against its plain version on
-    the same ``args``: FPS indices and cell offsets exact, ball-query rows
-    (scan or grid) exact off the radius boundary, fused SA rows within
-    ``FUSED_ATOL`` off it, 3-NN rows exact off distance ties and d2 within
-    ``D2_ATOL``, segment sums within ``SEGSUM_TOL`` of the call's largest
-    value (atomics add in no fixed order). Logs the counts, fails on any
+    the same ``args``: FPS indices and the grid prep's five tensors exact,
+    ball-query rows (scan or grid) exact off the radius boundary, fused SA
+    rows within ``FUSED_ATOL`` off it, 3-NN rows exact off distance ties
+    and d2 within ``D2_ATOL``, segment sums within ``SEGSUM_TOL`` of the
+    call's largest value (atomics add in no fixed order). Logs the counts, fails on any
     unmasked mismatch, and returns the max abs error off the masked rows."""
     want = PLAIN[name](*args)
     if name == "fps":
@@ -355,12 +388,15 @@ def check_call(phase, name, args, got):
         bad = int((got != want).sum())
         err = float((got - want).abs().max())
         report = f"{bad} mismatched indices"
-    elif name == "cell_offsets":
-        skey, cells = args
-        label = f"cell_offsets B={skey.shape[0]} N={skey.shape[1]} cells={cells}"
-        bad = int((got != want).sum())
-        err = float((got - want).abs().max())
-        report = f"{bad} mismatched offsets"
+    elif name == "grid_prep":
+        _, xyz, centers = args[:3]
+        label = f"grid_prep B={xyz.shape[0]} N={xyz.shape[1]} S={centers.shape[1]}"
+        diffs = {key: int((got[key] != want[key]).sum()) for key in want}
+        require(all(got[key].shape == want[key].shape and got[key].dtype == want[key].dtype
+                    for key in want), f"[{phase}] {label}: shapes or dtypes differ")
+        bad = sum(diffs.values())
+        err = max(float((got[key] - want[key]).abs().max()) for key in want)
+        report = "mismatched " + ", ".join(f"{key} {d}" for key, d in diffs.items())
     elif name in FUSED:
         radius, _, xyz, centers, w, _, layers = args
         label = (f"{name} N={xyz.shape[1]} S={centers.shape[1]} r={radius} "
@@ -1161,6 +1197,51 @@ def sparse_operands(idx, weights, values, m):
     return s.coalesce().to_sparse_csr(), values.reshape(b * r, -1)
 
 
+def segsum_extra_args(dev, gen):
+    """``[(label, (idx, weights, values, m))]`` of the segment sum beyond the
+    train step's 7 shapes, values at a gradient's scale (uniform in
+    +-1e-3), weights in [0, 1) as the interpolation's: C of 1, 3, 6 and 130
+    (the scalar form of the kernel); every index equal (the worst
+    contention: all rows of a cloud into one segment); indices outside
+    ``[0, M)``; one cloud. Each weighted (J=3) and unweighted (J=1)."""
+    def make(b, j, r, c, m, lo=0, hi=None, equal=False, weighted=True):
+        idx = torch.randint(lo, m if hi is None else hi, (b, j, r), generator=gen,
+                            dtype=torch.int32)
+        if equal:
+            idx.fill_(m // 3)
+        w = torch.rand((b, j, r), generator=gen) if weighted else None
+        v = (torch.rand((b, r, c), generator=gen) * 2 - 1) * 1e-3
+        return (idx.to(dev), None if w is None else w.to(dev), v.to(dev), m)
+
+    cases = []
+    for c in (1, 3, 6, 130):
+        cases += [(f"C={c}, weighted", make(B, 3, 1024, c, 256)),
+                  (f"C={c}, unweighted", make(B, 1, 2048, c, 512, weighted=False))]
+    return cases + [
+        ("every index equal, weighted", make(B, 3, 2048, 128, 512, equal=True)),
+        ("every index equal, unweighted", make(B, 1, 4096, 64, 1024, equal=True,
+                                               weighted=False)),
+        ("indices outside [0, M), weighted", make(B, 3, 1024, 128, 256, lo=-64, hi=320)),
+        ("indices outside [0, M), unweighted", make(B, 1, 2048, 64, 512, lo=-128, hi=640,
+                                                    weighted=False)),
+        ("B=1, weighted", make(1, 3, 4096, 128, 1024)),
+        ("B=1, unweighted", make(1, 1, 8192, 64, 1024, weighted=False)),
+    ]
+
+
+def phase_segsum_shapes(dev, gen):
+    """The segment sum against its plain version at the shapes of
+    :func:`segsum_extra_args`, within ``SEGSUM_TOL`` of each call's largest
+    |value|. Returns the largest abs error."""
+    err = 0.0
+    with torch.no_grad():
+        for label, args in segsum_extra_args(dev, gen):
+            log(f"[segsum shapes] {label}:")
+            err = max(err, check_call("segsum shapes", "segment_matmul", args,
+                                      segment_matmul_cuda(*args)))
+    return err
+
+
 def phase_train_times(state, batch, card_gen, seg_calls, smi):
     """The train step on the kernel path and on the plain path over several
     windows, a profiler trace of the kernel path, and the segment sum at
@@ -1202,13 +1283,22 @@ def phase_train_times(state, batch, card_gen, seg_calls, smi):
         call = segsum_label(idx.shape[1], m)
         log(f"[train times] sparse product {call} vs plain: {report}")
         require(bad == 0, f"the sparse product disagrees at {call}")
+        # the wrapper alone in device time: its zeroing (a memset) and its kernel
+        wrapper_dev = call_device_ms(f"segment_matmul {call}",
+                                     functools.partial(segment_matmul_cuda, *args), events=2)
+        library_dev = call_device_ms(f"sparse product {call}", lambda: s @ dense)
+        # the wrapper and the sparse product in turns: both are host-paced
+        ms, library_ms = in_turns([lambda: segment_matmul_cuda(*args), lambda: s @ dense],
+                                  iters=50)
         entry = {
             "call": call,
-            "ms": time_ms(lambda: segment_matmul_cuda(*args), iters=50),
+            "ms": ms,
             "plain_ms": time_ms(lambda: segment_matmul_torch(*args), iters=10),
             "device_ms": None if seg_device is None else seg_device[j],
+            "wrapper_device_ms": None if wrapper_dev is None else wrapper_dev[0],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": time_ms(lambda: s @ dense, iters=50),
+            "library_ms": library_ms,
+            "library_device_ms": None if library_dev is None else library_dev[0],
             "index_add_ms": None,
         }
         if weights is None:
@@ -1220,14 +1310,17 @@ def phase_train_times(state, batch, card_gen, seg_calls, smi):
                 iters=50,
             )
         shapes.append(entry)
-        dev_us = "not measured" if entry["device_ms"] is None else f"{entry['device_ms'] * 1e3:.1f} us"
+        def us(key):
+            return "not measured" if entry[key] is None else f"{entry[key] * 1e3:.1f} us"
+
         index_add = ("" if entry["index_add_ms"] is None
                      else f", index_add_ {entry['index_add_ms'] * 1e3:.1f} us")
         log(f"[train times] segment_matmul {call} (J={idx.shape[1]} R={r} M={m} C={c}): "
-            f"device {dev_us}, wrapper {entry['ms'] * 1e3:.1f} us, plain "
-            f"{entry['plain_ms'] * 1e3:.1f} us, sparse product "
-            f"{entry['library_ms'] * 1e3:.1f} us{index_add}, bound "
-            f"{bound_ms * 1e3:.2f} us ({bound_by}) ({smi})")
+            f"kernel in the step's trace {us('device_ms')}, wrapper alone on the device "
+            f"{us('wrapper_device_ms')} (memset + kernel), by events {entry['ms'] * 1e3:.1f} "
+            f"us, plain {entry['plain_ms'] * 1e3:.1f} us, sparse product "
+            f"{entry['library_ms'] * 1e3:.1f} us (device {us('library_device_ms')})"
+            f"{index_add}, bound {bound_ms * 1e3:.2f} us ({bound_by}) ({smi})")
     return step_ms, plain_ms, shapes
 
 
@@ -1474,15 +1567,15 @@ def phase_fused_serve(dev, gen, sd, pred, err):
     return fused, launches, calls
 
 
-def clustered_clouds(dev, gen):
+def clustered_clouds(dev, gen, n=N_GRID):
     """The clustered clouds of tests/test_kernels.py:80-129 scaled to
-    N_GRID points: 300/512 of them on one spot at 0.5, or 500/640 at 0.31,
+    ``n`` points: 300/512 of them on one spot at 0.5, or 500/640 at 0.31,
     the rest uniform."""
     out = []
     for spot, share in ((0.5, 300 / 512), (0.31, 500 / 640)):
-        xyz = torch.rand(B, N_GRID, 3, generator=gen)
-        xyz[:, : round(share * N_GRID)] = spot
-        out.append((f"{round(share * N_GRID)} of {N_GRID} points at {spot}", xyz.to(dev)))
+        xyz = torch.rand(B, n, 3, generator=gen)
+        xyz[:, : round(share * n)] = spot
+        out.append((f"{round(share * n)} of {n} points at {spot}", xyz.to(dev)))
     return out
 
 
@@ -1521,6 +1614,47 @@ def phase_grid_serve(dev, gen, sd, err):
             err["ballquery_grid"] = max(err["ballquery_grid"], check_call(
                 "grid kernels", "ballquery_grid", a, ballquery_grid_cuda(*a)))
     return pred, launches, calls
+
+
+def prep_clouds(n, gen):
+    """``[(label, xyz (B, n, 3) on the CPU)]`` that the grid prep kernel is
+    held on: uniform clouds; the clustered clouds of phase 11; clouds on
+    the 1/64 grid with both corners of the unit cube, so the cells are
+    exactly 1/8 wide and every point whose coordinate is a multiple of 1/8
+    sits on a cell face; every point of a cloud equal (extent 0, so the cell
+    size is the radius); a cloud inside a box narrower than the radius (all
+    its points in one cell)."""
+    lattice = torch.randint(0, 65, (B, n, 3), generator=gen) / 64.0
+    lattice[:, 0], lattice[:, 1] = 0.0, 1.0
+    one_cell = 0.2 + 0.05 * torch.rand(B, n, 3, generator=gen)
+    return [
+        ("uniform", torch.rand(B, n, 3, generator=gen)),
+        *[(f"clustered, {label}", c) for label, c in clustered_clouds("cpu", gen, n)],
+        ("1/64 grid, points on cell faces", lattice),
+        ("degenerate, every point equal", torch.full((B, n, 3), 0.3)),
+        ("one cell", one_cell),
+    ]
+
+
+def phase_prep_clouds(dev, gen, err, radius=0.1, s=1024):
+    """The grid prep kernel against its plain version, all five tensors bit
+    for bit, at N=4096 and N=8192 (S=1024, B=16, r=0.1) on the clouds of
+    :func:`prep_clouds`, and on uniform clouds with three centers a cloud
+    out of every ball (outside the bounding box); and at N=32768, a list
+    too long to stage in shared memory, where the kernel takes its other
+    form (keys recomputed, scattered to device memory)."""
+    for n in (4096, 8192, 32768):
+        clouds = prep_clouds(n, gen)
+        xyz = clouds[0][1].to(dev)
+        clouds.append(("uniform, 3 centers a cloud out of every ball", xyz,
+                       out_of_every_ball(random_centers(xyz, s, gen))))
+        for label, cloud, *given in clouds:
+            xyz = cloud.to(dev)
+            centers = given[0] if given else random_centers(xyz, s, gen)
+            log(f"[grid prep] N={n} S={s} {label}:")
+            args = (radius, xyz, centers)
+            err["grid_prep"] = max(err["grid_prep"], check_call(
+                "grid prep", "grid_prep", args, grid_prep_cuda(*args)))
 
 
 def fused_work(args, search):
@@ -1569,79 +1703,174 @@ def sa_level(args):
     return f"SA{1 + [n for n, _ in SA].index(centers.shape[1])} N={xyz.shape[1]}"
 
 
-def call_device_ms(label, fn, reps=5, pad=2):
-    """Device ms per call of ``fn``: the summed durations of the device
-    events that run inside a ``record_function`` range of ``reps`` calls,
-    closed by a synchronize, in a profiler trace that also holds ``pad``
-    calls before and after the range, so that the range is neither the
-    first nor the last thing the trace holds. ``None`` when the trace
-    holds no device events."""
+def call_device_ms(label, fn, reps=5, pad=3, events=None):
+    """``(ms, events)`` per call of ``fn``: the summed durations of the
+    device events of ``reps`` calls, in a profiler trace that also holds
+    ``pad`` calls before and after them, so that they are neither the first
+    nor the last thing the trace holds; and the number of those events a
+    call holds, which must equal ``events`` where it is given. The measured
+    calls are told apart on the device's own clock: the card is
+    synchronized and left idle for 10 ms before and after them, and their
+    events are those between the two longest gaps of the trace, each of
+    which must exceed 5 ms. (The host's clock cannot tell them apart: the
+    trace's device times drift from it by up to milliseconds.) ``None`` when
+    the trace holds no device events."""
     def run():
         for _ in range(pad):
             fn()
         torch.cuda.synchronize()
-        with torch.profiler.record_function("pn12::measured"):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+        time.sleep(0.01)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.01)
         for _ in range(pad):
             fn()
 
-    device, _, trace = trace_device(run, 1)
+    device, _, _ = trace_device(run, 1)
     if not device:
         return None
-    ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in trace
-              if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-              and e.get("name") == "pn12::measured"]
-    require(len(ranges) == 1, f"[layer times] {label}: {len(ranges)} measured ranges")
-    (start, stop), = ranges
-    inside = [e for e in device
-              if start <= float(e["ts"]) and float(e["ts"]) + float(e["dur"]) <= stop]
-    log(f"[layer times] {label}: {len(inside)} device events in the range of {reps} calls, "
-        f"{len(device)} in the trace of {reps + 2 * pad}")
+    gaps, end = [], float(device[0]["ts"])
+    for i, e in enumerate(device):  # sorted by start; gaps[i] precedes device[i]
+        gaps.append(float(e["ts"]) - end)
+        end = max(end, float(e["ts"]) + float(e["dur"]))
+    first, last = sorted(sorted(range(len(device)), key=gaps.__getitem__)[-2:])
+    inside = device[first:last]
+    log(f"[layer times] {label}: {len(inside)} device events between gaps of "
+        f"{gaps[first] / 1e3:.1f} and {gaps[last] / 1e3:.1f} ms, {len(device)} in the trace "
+        f"of {reps + 2 * pad} calls")
+    require(min(gaps[first], gaps[last]) > 5000.0,
+            f"[layer times] {label}: the measured calls are not set apart by idle gaps")
     require(inside and len(inside) % reps == 0,
             f"[layer times] {label}: {len(inside)} device events for {reps} calls")
-    return sum(float(e["dur"]) for e in inside) / reps / 1e3
+    per_call = len(inside) // reps
+    require(events is None or per_call == events,
+            f"[layer times] {label}: {per_call} device events a call, want {events}")
+    return sum(float(e["dur"]) for e in inside) / reps / 1e3, per_call
+
+
+def offsets_library(skey, cells):
+    """The one PyTorch call for the cell offsets of the sorted keys
+    ``skey``: the leftmost insertion point of each id counts the keys below
+    it."""
+    ids = torch.arange(cells + 1, dtype=torch.int32,
+                       device=skey.device).expand(skey.shape[0], -1).contiguous()
+    return functools.partial(torch.searchsorted, skey, ids, out_int32=True)
+
+
+def prep_args(calls):
+    """``(radius, xyz, centers)`` of the recorded grid_prep call in ``calls``."""
+    return next(a for n, a, _ in calls if n == "grid_prep")[:3]
+
+
+def prep_work(xyz, centers):
+    """``(bytes, ops)`` of one grid prep: the points and centers read once,
+    perm, skey, qperm, sqkey and the offsets written once; 6 ops a point for
+    the bounds (a min and a max an axis) and 20 a key (3 subtracts, 3
+    divides, 3 floors, 6 clamps, 3 integer multiply-adds, 2 for its count
+    and its place in the sort)."""
+    b, n, s = xyz.shape[0], xyz.shape[1], centers.shape[1]
+    nbytes = 4 * (xyz.numel() + centers.numel() + 2 * b * n + b * (GRID_RES**3 + 1)
+                  + 2 * b * s)
+    return nbytes, 6 * b * n + 20 * b * (n + s)
 
 
 def layer_device_ms(fused_calls, grid_calls):
-    """Device ms per call (:func:`call_device_ms`) of each fused layer's
-    wrapper (SA1's with its grid prep) beside the unfused kernel path of
-    the same layer, and at Path G's SA1 of the grid ball query's wrapper,
-    its ``grid_prep`` alone and ``ballquery.cu``. ``None`` when the traces
+    """``{label: (ms, events)}`` per call (:func:`call_device_ms`) of each
+    fused layer's wrapper (SA1's with its grid prep) beside the unfused
+    kernel path of the same layer; at the SA1 of Paths F and G of the grid
+    prep (one launch), the plain prep (the PyTorch ops it replaces) and
+    ``torch.searchsorted`` (the offsets alone); at Path G's SA1 of the grid
+    ball query's wrapper and ``ballquery.cu``. ``None`` when the traces
     hold no device events."""
     calls = {}
     for name, args, _ in [c for c in fused_calls if c[0] in FUSED]:
-        calls[f"{sa_level(args)} {name}"] = functools.partial(KERNELS[name]["wrapper"], *args)
-        calls[f"{sa_level(args)} unfused"] = functools.partial(unfused_layer, *args)
+        calls[f"{sa_level(args)} {name}"] = (
+            functools.partial(KERNELS[name]["wrapper"], *args),
+            2 if name == "fused_sa_grid" else 1)
+        calls[f"{sa_level(args)} unfused"] = (functools.partial(unfused_layer, *args), None)
+    for path, recorded in (("Path F SA1", fused_calls), ("Path G SA1", grid_calls)):
+        radius, xyz, centers = prep_args(recorded)
+        calls[f"{path} grid_prep"] = (
+            functools.partial(grid_prep, radius, xyz, centers, impl="cuda"), 1)
+        calls[f"{path} grid_prep plain"] = (
+            functools.partial(grid_prep_torch, radius, xyz, centers), None)
+        skey = grid_prep_torch(radius, xyz, centers)["skey"]
+        calls[f"{path} searchsorted"] = (offsets_library(skey, GRID_RES**3), None)
     args = next(a for n, a, _ in grid_calls if n == "ballquery_grid")
-    radius, _, xyz, centers = args
-    calls["Path G SA1 ballquery_grid"] = functools.partial(ballquery_grid_cuda, *args)
-    calls["Path G SA1 grid_prep"] = functools.partial(grid_prep, radius, xyz, centers,
-                                                      impl="cuda")
-    calls["Path G SA1 ballquery.cu"] = functools.partial(ballquery_cuda, *args)
+    calls["Path G SA1 ballquery_grid"] = (functools.partial(ballquery_grid_cuda, *args), 2)
+    calls["Path G SA1 ballquery.cu"] = (functools.partial(ballquery_cuda, *args), 1)
     out = {}
     with torch.inference_mode():
-        for label, fn in calls.items():
-            out[label] = call_device_ms(label, fn)
+        for label, (fn, events) in calls.items():
+            out[label] = call_device_ms(label, fn, events=events)
             if out[label] is None:
                 log("[layer times] the trace holds no device events: device time not measured")
                 return None
     return out
 
 
+def random_centers(xyz, s, gen):
+    """``s`` distinct points of each cloud, drawn at random (FPS takes
+    N <= 8192 only)."""
+    pick = torch.argsort(torch.rand(xyz.shape[:2], generator=gen), dim=1)[:, :s]
+    return index_points(xyz, pick.to(xyz.device)).contiguous()
+
+
+def crossover_curve(dev, smi):
+    """The card's ball-query crossover: the grid route (``ballquery_grid_cuda``,
+    its prep included) and the scan (``ballquery.cu``) at B=16, S=N/4, K=32,
+    r=0.1, N = 4096, 8192, 16384, on uniform clouds and on the first
+    clustered cloud of :func:`clustered_clouds` (300/512 of the points on
+    one spot at 0.5), by CUDA events and in device time. The two use the
+    same direct-form distance, so their indices must be equal. ``_route``
+    is not changed by it."""
+    gen = torch.Generator().manual_seed(7)
+    radius, rows = 0.1, []
+    for n in CROSSOVER_N:
+        for kind, cloud in prep_clouds(n, gen)[:2]:
+            xyz = cloud.to(dev)
+            centers = random_centers(xyz, n // 4, gen)
+            args = (radius, K, xyz, centers)
+            with torch.inference_mode():
+                require(torch.equal(ballquery_grid_cuda(*args), ballquery_cuda(*args)),
+                        f"[crossover] N={n} {kind}: the grid and scan routes differ")
+                grid_dev = call_device_ms(f"crossover grid N={n} {kind}",
+                                          functools.partial(ballquery_grid_cuda, *args),
+                                          events=2)
+                scan_dev = call_device_ms(f"crossover scan N={n} {kind}",
+                                          functools.partial(ballquery_cuda, *args), events=1)
+            row = {"n": n, "s": n // 4, "cloud": kind,
+                   "grid_ms": time_ms(lambda: ballquery_grid_cuda(*args), iters=30),
+                   "scan_ms": time_ms(lambda: ballquery_cuda(*args), iters=30),
+                   "grid_device_ms": None if grid_dev is None else grid_dev[0],
+                   "scan_device_ms": None if scan_dev is None else scan_dev[0]}
+            rows.append(row)
+            dev_txt = ("device not measured" if grid_dev is None else
+                       f"device grid {row['grid_device_ms'] * 1e3:.1f} us, scan "
+                       f"{row['scan_device_ms'] * 1e3:.1f} us")
+            log(f"[crossover] N={n} S={n // 4} {kind}: by events grid "
+                f"{row['grid_ms'] * 1e3:.1f} us, scan {row['scan_ms'] * 1e3:.1f} us; "
+                f"{dev_txt} ({smi})")
+            del xyz, centers, args
+    return rows
+
+
 def phase_new_times(fused_calls, grid_calls, pred, fused, grid_pred, request, smi):
     """Times of the new kernels at each shape of Paths F and G (CUDA
-    events): wrapper, plain version, bound, the one PyTorch call that
-    computes the cell offsets (``torch.searchsorted``, held equal to the
-    plain version first) and yardstick (the unfused kernel path of each
-    fused layer, ``ballquery.cu`` beside the grid ball query); the same
-    wrappers and yardsticks in device time (:func:`layer_device_ms`); the
+    events): wrapper, plain version, bound, the one PyTorch call for the
+    cell offsets (``torch.searchsorted``, held equal to the plain offsets
+    first) and yardstick (the unfused kernel path of each fused layer,
+    ``ballquery.cu`` beside the grid ball query); the same wrappers,
+    yardsticks, the plain prep and ``torch.searchsorted`` in device time
+    (:func:`layer_device_ms`); the ball-query crossover curve; the
     Predictors over windows; profiler traces of a Path F and a Path G
     forward. Returns ``(times, medians)``."""
     times = {name: {key: [] for key in ("call", "ms", "plain_ms", "bound_ms", "bound_by",
                                         "library_ms", "yardstick_ms", "device_ms",
-                                        "wrapper_device_ms", "yardstick_device_ms")}
+                                        "wrapper_device_ms", "yardstick_device_ms",
+                                        "plain_device_ms", "plain_device_events",
+                                        "library_device_ms")}
              for name in NEW}
 
     def add(name, call, ms, plain_ms, work, yardstick_ms, library_ms=None, extra=""):
@@ -1668,21 +1897,19 @@ def phase_new_times(fused_calls, grid_calls, pred, fused, grid_pred, request, sm
             fused_work(args, search), time_ms(lambda: unfused_layer(*args), iters=20),
             extra=f"; the {other} kernel at this shape {other_ms * 1e3:.1f} us")
     for path, calls in (("Path F SA1", fused_calls), ("Path G SA1", grid_calls)):
-        skey, cells = next(a for n, a, _ in calls if n == "cell_offsets")
-        b, n = skey.shape
-        work = (4 * (skey.numel() + b * (cells + 1)),
-                b * (cells + 1) * math.ceil(math.log2(n + 1)))
-        # the one PyTorch call for the same offsets: the leftmost insertion
-        # point of each id in the ascending keys counts the keys below it
-        ids = torch.arange(cells + 1, dtype=torch.int32,
-                           device=skey.device).expand(b, -1).contiguous()
-        library = functools.partial(torch.searchsorted, skey, ids, out_int32=True)
-        require(torch.equal(library(), cell_offsets_torch(skey, cells)),
+        radius, xyz, centers = prep_args(calls)
+        b, n, s = xyz.shape[0], xyz.shape[1], centers.shape[1]
+        skey = grid_prep_torch(radius, xyz, centers)["skey"]
+        library = offsets_library(skey, GRID_RES**3)
+        require(torch.equal(library(), cell_offsets_torch(skey, GRID_RES**3)),
                 f"[new times] torch.searchsorted disagrees with the plain cell offsets ({path})")
-        add("cell_offsets", f"{path} B={b} N={n}",
-            time_ms(lambda: cell_offsets_cuda(skey, cells), iters=50),
-            time_ms(lambda: cell_offsets_torch(skey, cells), iters=10), work, None,
-            library_ms=time_ms(library, iters=50))
+        # the wrapper and torch.searchsorted in turns: both are host-paced
+        ms, library_ms = in_turns([lambda: grid_prep_cuda(radius, xyz, centers), library],
+                                  iters=50)
+        add("grid_prep", f"{path} B={b} N={n} S={s}", ms,
+            time_ms(lambda: grid_prep_torch(radius, xyz, centers), iters=20),
+            prep_work(xyz, centers), None, library_ms=library_ms,
+            extra=" (library: torch.searchsorted, the offsets alone; both in turns)")
     args = next(a for n, a, _ in grid_calls if n == "ballquery_grid")
     radius, _, xyz, centers = args
     work = (4 * (xyz.numel() + centers.numel() + B * centers.shape[1] * K),
@@ -1706,20 +1933,33 @@ def phase_new_times(fused_calls, grid_calls, pred, fused, grid_pred, request, sm
     layer_ms = layer_device_ms(fused_calls, grid_calls)
     if layer_ms is not None:
         for name, level in [(n, sa_level(a)) for n, a, _ in fused_calls if n in FUSED]:
-            times[name]["wrapper_device_ms"].append(layer_ms[f"{level} {name}"])
-            times[name]["yardstick_device_ms"].append(layer_ms[f"{level} unfused"])
+            times[name]["wrapper_device_ms"].append(layer_ms[f"{level} {name}"][0])
+            times[name]["yardstick_device_ms"].append(layer_ms[f"{level} unfused"][0])
             log(f"[layer times] {level}: {name} wrapper "
-                f"{layer_ms[f'{level} {name}'] * 1e3:.1f} us on the device, the unfused kernel "
-                f"path of the layer {layer_ms[f'{level} unfused'] * 1e3:.1f} us ({smi})")
+                f"{layer_ms[f'{level} {name}'][0] * 1e3:.1f} us on the device, the unfused "
+                f"kernel path of the layer {layer_ms[f'{level} unfused'][0] * 1e3:.1f} us "
+                f"({smi})")
+        for path in ("Path F SA1", "Path G SA1"):
+            (prep_ms, _), (plain_ms, plain_events), (lib_ms, lib_events) = (
+                layer_ms[f"{path} {what}"] for what in ("grid_prep", "grid_prep plain",
+                                                        "searchsorted"))
+            t = times["grid_prep"]
+            t["wrapper_device_ms"].append(prep_ms)
+            t["plain_device_ms"].append(plain_ms)
+            t["plain_device_events"].append(plain_events)
+            t["library_device_ms"].append(lib_ms)
+            log(f"[layer times] {path}: grid_prep {prep_ms * 1e3:.1f} us on the device in 1 "
+                f"launch; the plain prep {plain_ms * 1e3:.1f} us in {plain_events} device "
+                f"events; torch.searchsorted {lib_ms * 1e3:.1f} us in {lib_events} ({smi})")
         times["ballquery_grid"]["wrapper_device_ms"].append(
-            layer_ms["Path G SA1 ballquery_grid"])
+            layer_ms["Path G SA1 ballquery_grid"][0])
         times["ballquery_grid"]["yardstick_device_ms"].append(
-            layer_ms["Path G SA1 ballquery.cu"])
-        times["ballquery_grid"]["grid_prep_device_ms"] = layer_ms["Path G SA1 grid_prep"]
+            layer_ms["Path G SA1 ballquery.cu"][0])
         log("[layer times] Path G SA1: ballquery_grid wrapper "
-            f"{layer_ms['Path G SA1 ballquery_grid'] * 1e3:.1f} us on the device, its "
-            f"grid_prep {layer_ms['Path G SA1 grid_prep'] * 1e3:.1f} us, ballquery.cu "
-            f"{layer_ms['Path G SA1 ballquery.cu'] * 1e3:.1f} us ({smi})")
+            f"{layer_ms['Path G SA1 ballquery_grid'][0] * 1e3:.1f} us on the device, its "
+            f"grid_prep {layer_ms['Path G SA1 grid_prep'][0] * 1e3:.1f} us, ballquery.cu "
+            f"{layer_ms['Path G SA1 ballquery.cu'][0] * 1e3:.1f} us ({smi})")
+    times["ballquery_grid"]["crossover"] = crossover_curve(xg.device, smi)
 
     forwards = 3
     device = profile_device("fused profile", lambda: fused(x), forwards, "forward", smi)
@@ -1728,15 +1968,14 @@ def phase_new_times(fused_calls, grid_calls, pred, fused, grid_pred, request, sm
                                                                  forwards)
         times["fused_sa_dense"]["device_ms"] = device_ms_per_call(device, "fused_sa_dense", 3,
                                                                   forwards)
-        times["cell_offsets"]["device_ms"] = device_ms_per_call(device, "cell_offsets", 1,
-                                                                forwards)
+        times["grid_prep"]["device_ms"] = device_ms_per_call(device, "grid_prep", 1, forwards)
     device = profile_device("grid profile", lambda: grid_pred(xg), forwards, "forward", smi)
     if device is not None:
         times["ballquery_grid"]["device_ms"] = device_ms_per_call(device, "ballquery_grid", 1,
                                                                   forwards)
-        if times["cell_offsets"]["device_ms"]:
-            times["cell_offsets"]["device_ms"] += device_ms_per_call(device, "cell_offsets", 1,
-                                                                     forwards)
+        if times["grid_prep"]["device_ms"]:
+            times["grid_prep"]["device_ms"] += device_ms_per_call(device, "grid_prep", 1,
+                                                                  forwards)
         log("[grid profile] per launch at N=8192: ballquery.cu SA2-SA4 "
             + ", ".join(f"{ms * 1e3:.1f}" for ms in device_ms_per_call(
                 device, "ballquery", 3, forwards))
@@ -1750,25 +1989,155 @@ def phase_new_times(fused_calls, grid_calls, pred, fused, grid_pred, request, sm
     return times, medians
 
 
+# ---------------------------------------------------------------- the launch path
+
+
+def host_ns(fn, reps=None, sync=False):
+    """``(median, mean)`` host ns of one call of ``fn`` over ``reps`` calls
+    (``HOST_REPS`` by default), each timed alone by ``time.perf_counter_ns`` after 20 untimed ones; with
+    ``sync`` the card is synchronized after every call, outside the timed
+    span, so a launch never waits on a full queue."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(HOST_REPS if reps is None else reps):
+        t0 = time.perf_counter_ns()
+        fn()
+        samples.append(time.perf_counter_ns() - t0)
+        if sync:
+            torch.cuda.synchronize()
+    return statistics.median(samples), statistics.fmean(samples)
+
+
+def old_idiom(entry, dev, args):
+    """The former launch of every wrapper (``build.library()``,
+    ``torch.cuda.device``, a ``Stream`` object for the handle, the ctypes
+    call, the code checked): the yardstick of :func:`build.launch`."""
+    lib = build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, f"pn12_{entry}")(*args, stream)
+    require(code == 0, f"{entry}: launch failed ({code})")
+
+
+def phase_launch_path(seg_args, prep_call, smi):
+    """Where a wrapper's host time goes, part by part, for the segment sum
+    at FP1's shape and the grid prep at Path G's SA1 (host ns of 1000 calls
+    of each part, :func:`host_ns`): its checks, the output's allocation
+    (``torch.zeros``, as the segment sum's output was zeroed before, and
+    ``torch.empty``), ``build.library()``, the device switch
+    (``torch.cuda.device``) and the ``Stream`` object
+    (``current_stream().cuda_stream``) of the old launch, the calls that
+    take their place (``_cuda_getDevice``, ``_cuda_getCurrentRawStream``),
+    the ctypes call alone, the whole old launch, ``build.launch`` and the
+    whole wrapper; beside them an empty call and one PyTorch op
+    (``torch.searchsorted`` of the offsets). Returns ``{label: (median,
+    mean)}``."""
+    idx, weights, values, m = seg_args
+    b, j, r = idx.shape
+    c = values.shape[2]
+    dev = values.device
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty((b, m, c), dtype=torch.float32, device=dev)
+    seg_ptrs = (idx.data_ptr(), None if weights is None else weights.data_ptr(),
+                values.data_ptr(), out.data_ptr(), b, j, r, m, c)
+
+    def seg_checks():
+        build.check_tensor("segment_matmul", "idx", idx, torch.int32, (None, None, None))
+        if weights is not None:
+            build.check_tensor("segment_matmul", "weights", weights, torch.float32,
+                               (b, j, r), dev)
+        build.check_tensor("segment_matmul", "values", values, torch.float32, (b, r, None),
+                           dev)
+
+    radius, xyz, centers = prep_call
+    n, s = xyz.shape[1], centers.shape[1]
+    shapes = {"perm": (b, n), "skey": (b, n), "offsets": (b, GRID_RES**3 + 1),
+              "qperm": (b, s), "sqkey": (b, s)}
+    total = sum(r * c for r, c in shapes.values())
+    grid = Grid(torch.empty(total, dtype=torch.int32, device=dev), shapes)
+    prep_ptrs = (xyz.data_ptr(), centers.data_ptr(), *(grid.ptr(key) for key in shapes),
+                 b, n, s, GRID_RES, radius)
+
+    def prep_checks():
+        build.check_tensor("grid_prep", "xyz", xyz, torch.float32, (None, None, 3))
+        build.check_tensor("grid_prep", "new_xyz", centers, torch.float32, (b, None, 3), dev)
+
+    def prep_buffer():
+        return Grid(torch.empty(total, dtype=torch.int32, device=dev), shapes)
+
+    def prep_views():
+        return [grid[key] for key in shapes]
+
+    def device_switch():
+        with torch.cuda.device(dev):
+            pass
+
+    skey = grid_prep_torch(*prep_call)["skey"]
+    searchsorted = offsets_library(skey, GRID_RES**3)
+    parts = {
+        "empty call": (lambda: None, False),
+        "build.library()": (build.library, False),
+        "torch.cuda.device enter + exit (old)": (device_switch, False),
+        "current_stream().cuda_stream (old)": (
+            lambda: torch.cuda.current_stream().cuda_stream, False),
+        "_cuda_getDevice() (new)": (torch._C._cuda_getDevice, False),
+        "_cuda_getCurrentRawStream (new)": (
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index), False),
+        "one PyTorch op: torch.searchsorted": (searchsorted, True),
+        "segment_matmul checks": (seg_checks, False),
+        "segment_matmul torch.zeros (old)": (
+            lambda: torch.zeros((b, m, c), dtype=torch.float32, device=dev), True),
+        "segment_matmul torch.empty": (
+            lambda: torch.empty((b, m, c), dtype=torch.float32, device=dev), False),
+        "segment_matmul ctypes call": (
+            lambda: lib.pn12_segment_matmul(*seg_ptrs, stream), True),
+        "segment_matmul old launch": (
+            lambda: old_idiom("segment_matmul", dev, seg_ptrs), True),
+        "segment_matmul build.launch": (
+            lambda: build.launch("segment_matmul", dev, *seg_ptrs), True),
+        "segment_matmul wrapper": (lambda: segment_matmul_cuda(*seg_args), True),
+        "grid_prep checks": (prep_checks, False),
+        "grid_prep torch.empty + Grid": (prep_buffer, False),
+        "grid_prep the five views (on demand only)": (prep_views, False),
+        "grid_prep ctypes call": (lambda: lib.pn12_grid_prep(*prep_ptrs, stream), True),
+        "grid_prep old launch": (lambda: old_idiom("grid_prep", dev, prep_ptrs), True),
+        "grid_prep build.launch": (lambda: build.launch("grid_prep", dev, *prep_ptrs), True),
+        "grid_prep wrapper": (lambda: grid_prep_cuda(*prep_call), True),
+    }
+    result = {}
+    for label, (fn, sync) in parts.items():
+        result[label] = host_ns(fn, sync=sync)
+        log(f"[launch path] {label}: median {result[label][0] / 1e3:.2f} us, mean "
+            f"{result[label][1] / 1e3:.2f} us a call on the host ({smi})")
+    return result
+
+
 def new_kernel_summary(name, by_path, err, times):
     """The ``{"kernels": [...]}`` entry of a kernel of this slice: sums over
     its shapes on Paths F and G, the shapes in ``per_shape``."""
     t, k = times[name], KERNELS[name]
     widest = max(range(len(t["bound_ms"])), key=t["bound_ms"].__getitem__)
     device = t["device_ms"]
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": err[name], "ms": sum(t["ms"]), "plain_ms": sum(t["plain_ms"]),
         "bound_ms": sum(t["bound_ms"]), "bound_by": t["bound_by"][widest],
-        # torch.searchsorted computes the cell offsets; no single PyTorch
-        # call computes the others, whose yardsticks (the unfused kernel
-        # path of a fused layer, ballquery.cu beside the grid ball query)
-        # are in per_shape
+        # torch.searchsorted computes the cell offsets, the grid prep's
+        # by-product (no single PyTorch call computes the whole prep); no
+        # single call computes the others, whose yardsticks (the unfused
+        # kernel path of a fused layer, ballquery.cu beside the grid ball
+        # query) are in per_shape
         "library_ms": None if None in t["library_ms"] else sum(t["library_ms"]),
         "device_ms": sum(device) if len(device) == len(t["ms"]) else None,
         "per_shape": t,
     }
+    if "also_replaces" in k:
+        entry["also_replaces"] = k["also_replaces"]
+    return entry
 
 
 def main():
@@ -1785,6 +2154,7 @@ def main():
     del pred, plain
     state, batch, card_gen, train_launches, eval_launches = phase_train(dev, gen)
     seg_calls, err["segment_matmul"] = phase_train_calls(state, batch, card_gen)
+    err["segment_matmul"] = max(err["segment_matmul"], phase_segsum_shapes(dev, gen))
     phase_train_grads(dev, gen)
     step_ms, plain_step_ms, seg_shapes = phase_train_times(state, batch, card_gen,
                                                            seg_calls, smi)
@@ -1798,8 +2168,10 @@ def main():
     pred = Predictor.from_state_dict("pointnet2_semseg", sd, CLASSES, device=dev)
     fused, fused_serve_launches, fused_calls = phase_fused_serve(dev, gen, sd, pred, err)
     grid_pred, grid_serve_launches, grid_calls = phase_grid_serve(dev, gen, sd, err)
+    phase_prep_clouds(dev, gen, err)
     new_times, serve_medians = phase_new_times(fused_calls, grid_calls, pred, fused, grid_pred,
                                                request, smi)
+    phase_launch_path(seg_calls[0][0], prep_args(grid_calls), smi)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
 
     summary = []
@@ -1852,7 +2224,8 @@ def main():
             # at the 3 unweighted ones only)
             per_shape = {key: [e[key] for e in seg_shapes]
                          for key in ("call", "ms", "plain_ms", "bound_ms", "bound_by",
-                                     "device_ms", "library_ms", "index_add_ms")}
+                                     "device_ms", "wrapper_device_ms", "library_ms",
+                                     "library_device_ms", "index_add_ms")}
             library = sum(per_shape["library_ms"])
         widest = max(range(len(per_shape["bound_ms"])), key=per_shape["bound_ms"].__getitem__)
         device = per_shape["device_ms"]

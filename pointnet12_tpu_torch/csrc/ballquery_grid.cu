@@ -1,19 +1,10 @@
-// Ball query through a voxel grid, and the grid's cell-offsets table.
+// Ball query through a voxel grid.
 //
-// Replaces:
-//   pointnet12_tpu/kernels/ballquery_grid.py::ballquery_grid (_grid_kernel)
-//     -> ballquery_grid_kernel, and
-//   pointnet12_tpu/kernels/ballquery_grid.py::_cell_offsets
-//     (_cell_offsets_kernel) -> cell_offsets_kernel.
-// The prep around them (binning, the stable sorts of the point and center
-// keys) is PyTorch, pointnet12_tpu_torch/ops/grid.py::grid_prep, as it was
-// XLA around the Pallas kernels.
-//
-// cell_offsets_kernel: offsets[b, c] = #{i : skey[b, i] < c} for c in
-// [0, H], H = g^3, over the sorted keys of each cloud. One thread per
-// (cloud, c) binary-searches the sorted keys (the first position whose key
-// is >= c). Bound: bytes, B x (H + 1) int32 out and the keys in; ~12 probes
-// a thread from L1/L2.
+// Replaces: pointnet12_tpu/kernels/ballquery_grid.py::ballquery_grid
+// (_grid_kernel) -> ballquery_grid_kernel. The grid it reads (the cell
+// offsets and the stable sorts of the point and center keys) comes from
+// grid_prep.cu, one launch, as the Pallas kernel's came from the XLA prep
+// and _cell_offsets.
 //
 // ballquery_grid_kernel: the ball-query contract of ballquery.cu (first K
 // in-radius indices ascending, pad with the first, N when none), with the
@@ -37,27 +28,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kOffsetThreads = 256;
 constexpr size_t kMaxSharedBytes = 232448;  // 227 KB, sm_90's per-block limit
-
-__global__ void cell_offsets_kernel(const int* __restrict__ skey,
-                                    int* __restrict__ offsets, int n,
-                                    int cells, int total) {
-  const int i = blockIdx.x * kOffsetThreads + threadIdx.x;
-  if (i >= total) return;
-  const int c = i % (cells + 1);
-  const int* keys = skey + static_cast<size_t>(i / (cells + 1)) * n;
-  int lo = 0, hi = n;  // the first position whose key is >= c
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (keys[mid] < c) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  offsets[i] = lo;
-}
 
 __global__ void ballquery_grid_kernel(
     const float* __restrict__ xyz, const float* __restrict__ centers,
@@ -83,23 +54,10 @@ __global__ void ballquery_grid_kernel(
 
 }  // namespace
 
-// skey (B, N) i32, sorted ascending per cloud -> offsets (B, cells + 1) i32.
-PN12_API int pn12_cell_offsets(const int* skey, int* offsets, int b, int n,
-                               int cells, void* stream) {
-  if (b <= 0 || n <= 0 || cells <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int total = b * (cells + 1);
-  const int blocks = (total + kOffsetThreads - 1) / kOffsetThreads;
-  cell_offsets_kernel<<<blocks, kOffsetThreads, 0, pn12::as_stream(stream)>>>(
-      skey, offsets, n, cells, total);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // xyz (B, N, 3) f32 and centers (B, S, 3) f32 in their original order;
 // perm (B, N) i32 (sorted position -> point index), offsets (B, g^3 + 1)
 // i32, qperm (B, S) i32 (sorted position -> center index) and qcell (B, S)
-// i32 (the centers' cell ids in sorted order), all from grid_prep
+// i32 (the centers' cell ids in sorted order), all from grid_prep.cu
 // -> out (B, S, K) i32 in the original center order.
 PN12_API int pn12_ballquery_grid(const float* xyz, const float* centers,
                                  const int* perm, const int* offsets,

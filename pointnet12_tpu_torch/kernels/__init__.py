@@ -1,5 +1,5 @@
 """Wrappers of the hand-written CUDA kernels, their dispatch and build.
 
-Each wrapper module imports its build lazily, inside the function that
-launches, so importing this package never calls nvcc.
+Importing a wrapper module builds nothing: ``build.py`` calls nvcc at the
+first launch, and every wrapper launches through ``build.launch``.
 """

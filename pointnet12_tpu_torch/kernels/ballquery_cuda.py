@@ -12,13 +12,13 @@ the kernel's launches.
 import numpy as np
 import torch
 
+from pointnet12_tpu_torch.kernels import build
+
 
 def ballquery_cuda(
     radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
 ) -> torch.Tensor:
     """xyz (B, N, 3), new_xyz (B, S, 3) f32 -> (B, S, nsample) i32."""
-    from pointnet12_tpu_torch.kernels import build
-
     B, N, _ = build.check_tensor(
         "ballquery", "xyz", xyz, torch.float32, (None, None, 3)
     )
@@ -35,13 +35,8 @@ def ballquery_cuda(
     # radius * radius in double, rounded to f32 once: the value the JAX
     # package compares against
     r2 = float(np.float32(radius * radius))
-    lib = build.library()
-    with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        build.check("ballquery", lib.pn12_ballquery(
-            xyz.data_ptr(), new_xyz.data_ptr(), out.data_ptr(),
-            B, N, S, nsample, r2, stream,
-        ))
+    build.launch("ballquery", xyz.device, xyz.data_ptr(), new_xyz.data_ptr(),
+                 out.data_ptr(), B, N, S, nsample, r2)
     ballquery_cuda.launches += 1
     return out
 

@@ -8,6 +8,8 @@ run. ``dense_bn_stats_cuda.launches`` counts the launches.
 
 import torch
 
+from pointnet12_tpu_torch.kernels import build
+
 MAX_COLUMN_TILES = 65535  # the kernel puts the column tiles on gridDim.y
 
 
@@ -24,8 +26,6 @@ def dense_bn_stats_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     -> ``(y (..., Co)`` in x's dtype, ``mean (Co,)``, ``var (Co,)`` f32):
     ``y = round(x @ weight.T) + round(bias)``, the biased one-pass
     statistics of the rounded ``y`` over every leading axis."""
-    from pointnet12_tpu_torch.kernels import build
-
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dense_bn_stats: x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() < 2:
@@ -46,14 +46,11 @@ def dense_bn_stats_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     partials = torch.empty((tiles, 2, co), dtype=torch.float32, device=x.device)
     mean = torch.empty((co,), dtype=torch.float32, device=x.device)
     var = torch.empty((co,), dtype=torch.float32, device=x.device)
-    lib = build.library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        build.check("dense_bn_stats", lib.pn12_dense_bn_stats(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            partials.data_ptr(), mean.data_ptr(), var.data_ptr(), r, ci, co, tiles,
-            int(x.dtype == torch.bfloat16), stream,
-        ))
+    build.launch(
+        "dense_bn_stats", x.device, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        y.data_ptr(), partials.data_ptr(), mean.data_ptr(), var.data_ptr(), r, ci, co,
+        tiles, int(x.dtype == torch.bfloat16),
+    )
     dense_bn_stats_cuda.launches += 1
     return y, mean, var
 

@@ -9,8 +9,8 @@ interface (pointers, sizes and the stream as plain arguments), so the
 build includes no PyTorch header and takes seconds.
 
 Nothing here runs at import: :func:`library` builds and loads on first
-use, and the kernel wrappers import this module inside the function that
-launches. A failed build raises with nvcc's output; nothing falls back.
+use. The kernel wrappers launch through :func:`launch`, one idiom for all.
+A failed build or launch raises; nothing falls back.
 """
 
 import ctypes
@@ -22,6 +22,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 
 def build_dir(root: Path) -> Path:
@@ -54,7 +56,7 @@ _SIGNATURES = {
     "pn12_three_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
     "pn12_segment_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pn12_dense_bn_stats": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "pn12_cell_offsets": (_P, _P, _I, _I, _I, _P),
+    "pn12_grid_prep": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P),
     "pn12_ballquery_grid": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P,
     ),
@@ -182,8 +184,23 @@ def check_tensor(kernel: str, name: str, t, dtype, shape, device=None):
     return tuple(t.shape)
 
 
-def check(name: str, code: int) -> None:
-    """Raise if a kernel entry point returned a CUDA error code."""
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the entry point ``pn12_<name>`` with ``args`` and the current
+    stream of ``device`` (a CUDA device with its index, as a CUDA tensor's
+    ``.device`` is), and raise if it returns a CUDA error code.
+
+    The least host work that the launch path's breakdown on the card
+    allows (PERF.md): the raw stream handle from PyTorch's C API, as Triton
+    and Inductor take it, where ``torch.cuda.current_stream()`` builds a
+    ``Stream`` object; the device switched only when it is not the current
+    one, where ``torch.cuda.device`` switched and restored it every call."""
+    fn = getattr(library(), "pn12_" + name)
+    index = device.index
+    if torch._C._cuda_getDevice() == index:
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if code != 0:
         msg = library().pn12_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({code})")

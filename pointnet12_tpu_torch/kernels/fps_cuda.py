@@ -7,13 +7,13 @@ kernel's launches.
 
 import torch
 
+from pointnet12_tpu_torch.kernels import build
+
 MAX_POINTS = 8192  # kMaxPerThread * kMaxThreads in csrc/fps.cu
 
 
 def fps_cuda(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tensor:
     """xyz (B, N, 3) f32, start (B,) i32 -> (B, npoint) i32 on the card."""
-    from pointnet12_tpu_torch.kernels import build
-
     B, N, _ = build.check_tensor("fps", "xyz", xyz, torch.float32, (None, None, 3))
     build.check_tensor("fps", "start", start, torch.int32, (B,), xyz.device)
     if N > MAX_POINTS:
@@ -23,13 +23,8 @@ def fps_cuda(xyz: torch.Tensor, npoint: int, start: torch.Tensor) -> torch.Tenso
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     if B == 0:
         return out
-    lib = build.library()
-    with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        build.check("fps", lib.pn12_fps(
-            xyz.data_ptr(), start.data_ptr(), out.data_ptr(), B, N, npoint,
-            stream,
-        ))
+    build.launch("fps", xyz.device, xyz.data_ptr(), start.data_ptr(),
+                 out.data_ptr(), B, N, npoint)
     fps_cuda.launches += 1
     return out
 

@@ -13,6 +13,10 @@ import ctypes
 import numpy as np
 import torch
 
+from pointnet12_tpu_torch.kernels import build
+from pointnet12_tpu_torch.kernels import grid_cuda
+from pointnet12_tpu_torch.ops.grid import G
+
 MAX_LAYERS = 8  # kMaxLayers in csrc/fused_sa.cu
 
 
@@ -21,8 +25,6 @@ def _operands(name, radius, nsample, xyz, new_xyz, w, t, layers):
     widths))``: the output allocated, the sizes, r^2 rounded to f32, and the
     ctypes arrays of the layers' device pointers and of the widths
     ``(C1, Co_1, ..., Co_L)``, which the caller keeps until the launch."""
-    from pointnet12_tpu_torch.kernels import build
-
     B, N, _ = build.check_tensor(name, "xyz", xyz, torch.float32, (None, None, 3))
     dev = xyz.device
     _, S, _ = build.check_tensor(name, "new_xyz", new_xyz, torch.float32, (B, None, 3), dev)
@@ -55,20 +57,15 @@ def fused_sa_eval_dense_cuda(radius, nsample, xyz, new_xyz, w, t, layers):
     ``layers``, a sequence of (kernel (Ci, Co), bias (Co,)), all f32 and
     contiguous -> (B, S, C_out) f32. The neighbours come from a scan of all
     N points in index order."""
-    from pointnet12_tpu_torch.kernels import build
-
     name = "fused_sa_eval_dense"
     out, (B, N, S), r2, (weights, biases, widths) = _operands(
         name, radius, nsample, xyz, new_xyz, w, t, layers
     )
-    lib = build.library()
-    with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        build.check(name, lib.pn12_fused_sa_dense(
-            xyz.data_ptr(), new_xyz.data_ptr(), w.data_ptr(), t.data_ptr(),
-            weights, biases, widths, len(layers), out.data_ptr(),
-            B, N, S, nsample, r2, stream,
-        ))
+    build.launch(
+        "fused_sa_dense", xyz.device, xyz.data_ptr(), new_xyz.data_ptr(), w.data_ptr(),
+        t.data_ptr(), weights, biases, widths, len(layers), out.data_ptr(),
+        B, N, S, nsample, r2,
+    )
     fused_sa_eval_dense_cuda.launches += 1
     return out
 
@@ -78,26 +75,19 @@ fused_sa_eval_dense_cuda.launches = 0
 
 def fused_sa_eval_grid_cuda(radius, nsample, xyz, new_xyz, w, t, layers):
     """As :func:`fused_sa_eval_dense_cuda`, the neighbours from the 27
-    cells around each center of ``ops/grid.py::grid_prep``'s grid (which
-    launches ``cell_offsets_cuda``)."""
-    from pointnet12_tpu_torch.kernels import build
-    from pointnet12_tpu_torch.ops.grid import G, grid_prep
-
+    cells around each center of ``kernels/grid_cuda.py::grid_prep_cuda``'s
+    grid."""
     name = "fused_sa_eval_grid"
     out, (B, N, S), r2, (weights, biases, widths) = _operands(
         name, radius, nsample, xyz, new_xyz, w, t, layers
     )
-    grid = grid_prep(radius, xyz, new_xyz, impl="cuda")
-    lib = build.library()
-    with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        build.check(name, lib.pn12_fused_sa_grid(
-            xyz.data_ptr(), new_xyz.data_ptr(), w.data_ptr(), t.data_ptr(),
-            weights, biases, widths, len(layers), grid["perm"].data_ptr(),
-            grid["offsets"].data_ptr(), grid["qperm"].data_ptr(),
-            grid["sqkey"].data_ptr(), out.data_ptr(), B, N, S, nsample, G, r2,
-            stream,
-        ))
+    grid = grid_cuda.grid_prep_cuda(radius, xyz, new_xyz)
+    build.launch(
+        "fused_sa_grid", xyz.device, xyz.data_ptr(), new_xyz.data_ptr(), w.data_ptr(),
+        t.data_ptr(), weights, biases, widths, len(layers), grid.ptr("perm"),
+        grid.ptr("offsets"), grid.ptr("qperm"), grid.ptr("sqkey"),
+        out.data_ptr(), B, N, S, nsample, G, r2,
+    )
     fused_sa_eval_grid_cuda.launches += 1
     return out
 

@@ -8,14 +8,14 @@ version is ``ops/interpolate.py::three_nn_torch``.
 
 import torch
 
+from pointnet12_tpu_torch.kernels import build
+
 MAX_BATCH = 65535  # the kernel puts the batch on gridDim.y
 
 
 def three_nn_cuda(query_xyz: torch.Tensor, ref_xyz: torch.Tensor):
     """query (B, N, 3), ref (B, M, 3) f32, M >= 3 ->
     (d2 (B, N, 3) f32 ascending, idx (B, N, 3) i32)."""
-    from pointnet12_tpu_torch.kernels import build
-
     B, N, _ = build.check_tensor(
         "three_nn", "query_xyz", query_xyz, torch.float32, (None, None, 3)
     )
@@ -31,13 +31,8 @@ def three_nn_cuda(query_xyz: torch.Tensor, ref_xyz: torch.Tensor):
     idx = torch.empty((B, N, 3), dtype=torch.int32, device=query_xyz.device)
     if B == 0 or N == 0:
         return dist, idx
-    lib = build.library()
-    with torch.cuda.device(query_xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        build.check("three_nn", lib.pn12_three_nn(
-            query_xyz.data_ptr(), ref_xyz.data_ptr(), dist.data_ptr(),
-            idx.data_ptr(), B, N, M, stream,
-        ))
+    build.launch("three_nn", query_xyz.device, query_xyz.data_ptr(),
+                 ref_xyz.data_ptr(), dist.data_ptr(), idx.data_ptr(), B, N, M)
     three_nn_cuda.launches += 1
     return dist, idx
 

@@ -8,8 +8,9 @@ every slot. On the card ``impl="auto"`` routes by shape alone, as the JAX
 package's ``_route`` (:64-70) does: N >= 8192 with N and S multiples of 128
 to the voxel-grid kernel (``csrc/ballquery_grid.cu``), every other shape
 to the index-order scan (``csrc/ballquery.cu``, which stands in for both
-of JAX's other kernels). The 8192 crossover was measured on the TPU and is
-kept until the card's own is measured (PERF.md).
+of JAX's other kernels). The 8192 crossover was measured on the TPU; the
+card's own curve is in PERF.md, and the choice it calls for is ROADMAP
+Queue 1's first item.
 """
 
 import numpy as np

@@ -29,7 +29,7 @@ from pointnet12_tpu_torch.kernels import selfcheck
 from pointnet12_tpu_torch.kernels.fused_sa_cuda import (
     fused_sa_eval_dense_cuda, fused_sa_eval_grid_cuda,
 )
-from pointnet12_tpu_torch.kernels.grid_cuda import ballquery_grid_cuda, cell_offsets_cuda
+from pointnet12_tpu_torch.kernels.grid_cuda import ballquery_grid_cuda, grid_prep_cuda
 from pointnet12_tpu_torch.models import get_model
 from pointnet12_tpu_torch.nn import set_abstraction
 from pointnet12_tpu_torch.ops import ballquery, fused_sa, grid
@@ -51,6 +51,26 @@ def _clouds(seed, b, n, clustered):
         xyz[-1, : 3 * n // 4] = 0.05 * rng.uniform(size=(3 * n // 4, 3))
         xyz[-1, : n // 8] = 0.31
     return xyz
+
+
+def _prep_clouds(seed, b, n, kind):
+    """The clouds the grid prep is held on: ``False`` uniform, ``True``
+    clustered (:func:`_clouds`); ``"lattice"`` on the 1/64 grid with both
+    corners of the unit cube, so the cells are exactly 1/8 wide and every
+    coordinate that is a multiple of 1/8 sits on a cell face;
+    ``"degenerate"`` every point equal (extent 0: the cell size is the
+    radius); ``"one_cell"`` inside a box narrower than the radius."""
+    if kind in (False, True):
+        return _clouds(seed, b, n, kind)
+    rng = np.random.RandomState(seed)
+    if kind == "lattice":
+        xyz = rng.randint(0, 65, size=(b, n, 3)) / 64.0
+        xyz[:, 0], xyz[:, 1] = 0.0, 1.0
+    elif kind == "degenerate":
+        xyz = np.full((b, n, 3), 0.3)
+    else:
+        xyz = 0.2 + 0.05 * rng.uniform(size=(b, n, 3))
+    return xyz.astype(np.float32)
 
 
 def _centers(xyz, s, seed):
@@ -86,9 +106,12 @@ def _jax_grid_prep(radius, xyz, centers):
 
 @pytest.mark.parametrize("n,s,radius,clustered", [
     (1024, 256, 0.1, False), (1024, 256, 0.1, True), (2048, 128, 0.3, True),
+    (1024, 256, 0.1, "lattice"), (1024, 256, 0.1, "degenerate"), (1024, 256, 0.1, "one_cell"),
 ])
 def test_grid_prep_equals_jax(n, s, radius, clustered):
-    xyz = _clouds(40, 2, n, clustered)
+    """The plain grid prep against JAX's, on the clouds of
+    :func:`_prep_clouds` (``clustered`` names the kind)."""
+    xyz = _prep_clouds(40, 2, n, clustered)
     centers = _centers(xyz, s, 41)
     want, seen = _jax_grid_prep(radius, xyz, centers)
     got = grid.grid_prep(radius, _t(xyz), _t(centers))
@@ -396,21 +419,23 @@ def test_fused_model_in_train_mode_runs_the_unfused_train_path():
 # ---------------------------------------------------------------- wrappers
 
 
-@pytest.mark.parametrize("wrapper", ["cell_offsets", "ballquery_grid", "dense", "grid"])
+@pytest.mark.parametrize("wrapper", ["grid_prep", "ballquery_grid", "dense", "grid"])
 def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
     xyz = torch.rand(1, 256, 3)
     centers = xyz[:, :128].contiguous()
     w, t = torch.rand(1, 256, 8), torch.rand(1, 128, 8)
     layers = [(torch.rand(8, 8), torch.rand(8)), (torch.rand(8, 4), torch.rand(4))]
     with pytest.raises(ValueError, match="CUDA"):
-        if wrapper == "cell_offsets":
-            cell_offsets_cuda(torch.zeros(1, 256, dtype=torch.int32), H)
+        if wrapper == "grid_prep":
+            grid_prep_cuda(0.2, xyz, centers)
         elif wrapper == "ballquery_grid":
             ballquery_grid_cuda(0.2, 8, xyz, centers)
         else:
             fn = fused_sa_eval_dense_cuda if wrapper == "dense" else fused_sa_eval_grid_cuda
             fn(0.2, 8, xyz, centers, w, t, layers)
-    assert (cell_offsets_cuda.launches == ballquery_grid_cuda.launches
+    assert (grid_prep_cuda.launches == ballquery_grid_cuda.launches
             == fused_sa_eval_dense_cuda.launches == fused_sa_eval_grid_cuda.launches == 0)
     with pytest.raises(ValueError, match="CUDA"):
         fused_sa.fused_sa_eval(0.2, 8, xyz, centers, w, t, layers, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        grid.grid_prep(0.2, xyz, centers, impl="cuda")

@@ -137,26 +137,47 @@ def assert_tree_close(got, want, rtol, atol):
 # ---------------------------------------------------------------- segment sum
 
 
+def _ball_query_style_index(rng, B, J, R, M, k=8):
+    """(B, J, R) int32 as a ball query's rows make them, in groups of ``k``:
+    a few distinct indices ascending, the rest of the group repeating the
+    first (``ops/ballquery.py``'s padding), so one segment takes several
+    contributions from one group."""
+    idx = np.empty((B, J, R), np.int32)
+    for b in range(B):
+        for j in range(J):
+            for g0 in range(0, R, k):
+                width = min(k, R - g0)
+                found = rng.randint(1, width + 1)
+                row = np.sort(rng.choice(M, size=found, replace=False))
+                idx[b, j, g0:g0 + width] = np.concatenate([row, np.full(width - found, row[0])])
+    return idx
+
+
 @pytest.mark.parametrize(
     "B,J,R,C,M",
-    [(2, 1, 256, 64, 128), (2, 3, 96, 32, 64), (1, 1, 512, 16, 256), (2, 3, 40, 8, 16)],
+    [(2, 1, 256, 64, 128), (2, 3, 96, 32, 64), (1, 1, 512, 16, 256), (2, 3, 40, 8, 16),
+     (2, 3, 96, 3, 64), (2, 1, 128, 130, 32)],
 )
 def test_segment_matmul_matches_jax(B, J, R, C, M):
-    """The shapes of tests/test_kernels.py:258-261, weighted and not,
-    against the scatter form and the Pallas kernel (interpreted)."""
+    """The shapes of tests/test_kernels.py:258-261, and C=3 and C=130 (no
+    multiple of 4: the scalar form of the CUDA kernel), weighted and not,
+    on uniform indices and on a ball query's padded rows, against the
+    scatter form and the Pallas kernel (interpreted)."""
     rng = np.random.RandomState(11)
     idx = rng.randint(0, M, size=(B, J, R)).astype(np.int32)
     w = rng.uniform(-1, 1, size=(B, J, R)).astype(np.float32)
     vals = rng.uniform(-1, 1, size=(B, R, C)).astype(np.float32)
-    for weights in (w, None):
-        jw = None if weights is None else jnp.asarray(weights)
-        got = segment_matmul(_t(idx), None if weights is None else _t(weights), _t(vals), M)
-        assert got.dtype == torch.float32 and got.shape == (B, M, C)
-        for want in (
-            _segment_matmul_jnp(jnp.asarray(idx), jw, jnp.asarray(vals), M),
-            segment_matmul_pallas(jnp.asarray(idx), jw, jnp.asarray(vals), M, interpret=True),
-        ):
-            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    for idx in (idx, _ball_query_style_index(rng, B, J, R, M)):
+        for weights in (w, None):
+            jw = None if weights is None else jnp.asarray(weights)
+            got = segment_matmul(_t(idx), None if weights is None else _t(weights), _t(vals), M)
+            assert got.dtype == torch.float32 and got.shape == (B, M, C)
+            for want in (
+                _segment_matmul_jnp(jnp.asarray(idx), jw, jnp.asarray(vals), M),
+                segment_matmul_pallas(jnp.asarray(idx), jw, jnp.asarray(vals), M,
+                                      interpret=True),
+            ):
+                np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_segment_matmul_drops_out_of_range_rows_as_the_pallas_kernel():
