@@ -123,7 +123,21 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
    sum's and the grid prep's wrappers (checks, allocation, the old launch's
    device switch and ``Stream`` object, the raw calls that replace them,
    the ctypes call, ``build.launch``, the whole wrapper; the grid's five
-   views, made only on demand) beside an empty call and one PyTorch op.
+   views, made only on demand) beside an empty call and one PyTorch op;
+14. FPS at any N: the kernel equal to its plain version at N = 12289,
+   16384 and 32768 (B=16 from random starts drawn from a card generator,
+   B=1 from index 0) and at N=4096 on degenerate, 1/64-grid and clustered
+   clouds from random starts; at the four slice shapes, Path G's SA1 and
+   each new N every thread count with an instance held equal and timed
+   (the sweep: CUDA events, and device time up to N=8192), the default's
+   wrapper and device time (one device event a call), ns an iteration and
+   bound; one ``Predictor`` forward of B=2 clouds of N=16384, every kernel
+   call held to its plain version, log-probs finite and normalised.
+
+Every profiler trace whose launches are counted (phases 6, 7, 9, 12) or
+timed call by call holds padding calls before and after the measured
+ones, which lie between two stretches of idle card (``traced_window``):
+a trace loses one or two device events at its ends.
 
 Every kernel's least time on the card (``bound_ms``) is the larger of the
 bytes it must move over 3.35 TB/s and the operations it does over
@@ -153,7 +167,7 @@ from pointnet12_tpu_torch.infer import Predictor, pad_batch
 from pointnet12_tpu_torch.kernels import build, selfcheck
 from pointnet12_tpu_torch.kernels.ballquery_cuda import ballquery_cuda
 from pointnet12_tpu_torch.kernels.bn_stats_cuda import dense_bn_stats_cuda
-from pointnet12_tpu_torch.kernels.fps_cuda import fps_cuda
+from pointnet12_tpu_torch.kernels.fps_cuda import THREADS, fps_cuda, fps_plan
 from pointnet12_tpu_torch.kernels.fused_sa_cuda import (
     fused_sa_eval_dense_cuda, fused_sa_eval_grid_cuda,
 )
@@ -373,15 +387,16 @@ def level_clouds(dev, gen):
     return levels
 
 
-def check_call(phase, name, args, got):
+def check_call(phase, name, args, got, want=None):
     """Hold one kernel call's output ``got`` against its plain version on
-    the same ``args``: FPS indices and the grid prep's five tensors exact,
+    the same ``args`` (``want``, where the caller already has it): FPS
+    indices and the grid prep's five tensors exact,
     ball-query rows (scan or grid) exact off the radius boundary, fused SA
     rows within ``FUSED_ATOL`` off it, 3-NN rows exact off distance ties
     and d2 within ``D2_ATOL``, segment sums within ``SEGSUM_TOL`` of the
     call's largest value (atomics add in no fixed order). Logs the counts, fails on any
     unmasked mismatch, and returns the max abs error off the masked rows."""
-    want = PLAIN[name](*args)
+    want = PLAIN[name](*args) if want is None else want
     if name == "fps":
         xyz, npoint, _ = args
         label = f"fps N={xyz.shape[1]} S={npoint}"
@@ -957,21 +972,26 @@ def report_windows(label, fn, windows, iters, unit, smi, n=None):
     return med
 
 
-def annotated_device_us(events, annotation):
-    """Device µs of the kernels launched inside the ``record_function``
-    ranges named ``annotation``: the host-side launch calls in those ranges
-    give the correlation ids of their device events."""
+def annotated_device_us(events, annotation, device):
+    """Device µs of the kernels in ``device`` (a trace's measured events)
+    launched inside the ``record_function`` ranges named ``annotation``:
+    the host-side launch calls in those ranges give the correlation ids of
+    their device events. Returns the µs, the ranges that launched one of
+    them and their number."""
     spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
              if e.get("ph") == "X" and e.get("cat") == "user_annotation"
              and e.get("name") == annotation]
+    measured = {e.get("args", {}).get("correlation") for e in device}
+    launches = [float(e["ts"]) for e in events
+                if e.get("ph") == "X" and e.get("cat", "").startswith("cuda_")
+                and e.get("args", {}).get("correlation") in measured]
     ids = {e["args"]["correlation"] for e in events
            if e.get("ph") == "X" and e.get("cat", "").startswith("cuda_")
-           and "correlation" in e.get("args", {})
+           and e.get("args", {}).get("correlation") in measured
            and any(a <= float(e["ts"]) <= b for a, b in spans)}
-    device = [e for e in events if e.get("ph") == "X"
-              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-              and e.get("args", {}).get("correlation") in ids]
-    return sum(float(e["dur"]) for e in device), len(spans), len(device)
+    inside = [e for e in device if e.get("args", {}).get("correlation") in ids]
+    ranges = sum(any(a <= t <= b for t in launches) for a, b in spans)
+    return sum(float(e["dur"]) for e in inside), ranges, len(inside)
 
 
 def trace_device(fn, reps):
@@ -999,17 +1019,94 @@ def trace_device(fn, reps):
     return device, wall_us, trace
 
 
+def traced_window(label, fn, reps, pad, idle_s, per_call=None, attempts=3):
+    """``(device events, host µs, trace events)`` of ``reps`` calls of ``fn``
+    in a profiler trace that also holds ``pad`` calls before and after
+    them and a few tiny fills at its two ends, so that they are neither
+    the first nor the last thing the trace holds (a trace loses device
+    events at its ends, more of them after long kernels). The measured calls
+    are told apart on the device's own clock: the card is synchronized and
+    left idle for ``idle_s`` before and after them, and their events are
+    those between the trace's two longest gaps, each of which must exceed
+    half of ``idle_s``; where ``per_call`` is given they must number
+    ``per_call * reps``. (The host's clock cannot tell them apart: the
+    trace's device times drift from it by up to milliseconds.) A trace
+    that fails these checks, having lost events, is taken again, up to
+    ``attempts`` times in all, as is one that holds no device events at
+    all. The host µs span the measured calls and their synchronization.
+    ``None`` without a card (a rehearsal on the CPU)."""
+    wall = []
+
+    def flush():
+        # tiny fills at both ends of the trace, a quarter of the idle time
+        # away: the events a trace loses at its ends are these first
+        if torch.cuda.is_available():
+            for _ in range(8):
+                torch.zeros(1, device=torch.cuda.current_device())
+        torch.cuda.synchronize()
+        time.sleep(idle_s / 4)
+
+    def run():
+        flush()
+        for _ in range(pad):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(idle_s)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e6)
+        time.sleep(idle_s)
+        for _ in range(pad):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(idle_s / 4)
+        flush()
+
+    for attempt in range(1, attempts + 1):
+        device, _, trace = trace_device(run, 1)
+        if not device and not torch.cuda.is_available():
+            return None  # a rehearsal on the CPU: nothing to measure
+        if not device:
+            fault = "the trace holds no device events"
+            log(f"[trace window] {label}: {fault} (attempt {attempt} of {attempts})")
+            continue
+        gaps, end = [], float(device[0]["ts"])
+        for e in device:  # sorted by start; gaps[i] precedes device[i]
+            gaps.append(float(e["ts"]) - end)
+            end = max(end, float(e["ts"]) + float(e["dur"]))
+        first, last = sorted(sorted(range(len(device)), key=gaps.__getitem__)[-2:])
+        inside = device[first:last]
+        log(f"[trace window] {label}: {len(inside)} device events between gaps of "
+            f"{gaps[first] / 1e3:.1f} and {gaps[last] / 1e3:.1f} ms, {len(device)} in the "
+            f"trace of {reps + 2 * pad} calls")
+        fault = None
+        if min(gaps[first], gaps[last]) <= idle_s * 0.5e6:
+            fault = "the measured calls are not set apart by idle gaps"
+        elif not inside or len(inside) % reps:
+            fault = f"{len(inside)} device events for {reps} calls"
+        elif per_call is not None and len(inside) != per_call * reps:
+            fault = f"{len(inside) // reps} device events a call, want {per_call}"
+        if fault is None:
+            return inside, wall[-1], trace
+        log(f"[trace window] {label}: {fault} (attempt {attempt} of {attempts})")
+    raise SmokeFailure(f"[trace window] {label}: {fault}")
+
+
 def profile_device(phase, fn, reps, unit, smi, annotations=None):
-    """Device events of ``reps`` calls of ``fn`` (:func:`trace_device`);
-    logs the device busy time (the union of the kernel, copy and fill
-    intervals), the idle share of the host's window and the device ops
-    that take the time. ``None`` when the trace holds no device events.
+    """Device events of ``reps`` calls of ``fn``, one padding call on each
+    side (:func:`traced_window`, 50 ms of idle card around the measured
+    ones); logs the device busy time (the union of the kernel, copy and
+    fill intervals), the idle share of the host's window and the device
+    ops that take the time. ``None`` when the trace holds no device events.
     ``annotations``, a dict of ``record_function`` names, gets each one's
     device µs per call of ``fn`` and its share of the busy time."""
-    device, wall_us, trace = trace_device(fn, reps)
-    if not device:
+    window = traced_window(phase, fn, reps, pad=1, idle_s=0.05)
+    if window is None:
         log(f"[{phase}] the trace holds no device events: device time not measured")
         return None
+    device, wall_us, trace = window
     busy, end = 0.0, -1.0
     for e in device:
         start, stop = float(e["ts"]), float(e["ts"]) + float(e["dur"])
@@ -1025,7 +1122,7 @@ def profile_device(phase, fn, reps, unit, smi, annotations=None):
         f"{1 - busy / wall_us:.3f}, {len(device) / reps:.0f} device "
         f"events ({smi})")
     for name in annotations or {}:
-        us, ranges, kernels = annotated_device_us(trace, name)
+        us, ranges, kernels = annotated_device_us(trace, name, device)
         annotations[name] = (us / reps, us / busy)
         log(f"[{phase}] {name}: {us / reps:.1f} us per {unit} on the device, "
             f"{us / busy:.3f} of the busy time ({ranges / reps:.0f} ranges, "
@@ -1706,47 +1803,15 @@ def sa_level(args):
 def call_device_ms(label, fn, reps=5, pad=3, events=None):
     """``(ms, events)`` per call of ``fn``: the summed durations of the
     device events of ``reps`` calls, in a profiler trace that also holds
-    ``pad`` calls before and after them, so that they are neither the first
-    nor the last thing the trace holds; and the number of those events a
-    call holds, which must equal ``events`` where it is given. The measured
-    calls are told apart on the device's own clock: the card is
-    synchronized and left idle for 10 ms before and after them, and their
-    events are those between the two longest gaps of the trace, each of
-    which must exceed 5 ms. (The host's clock cannot tell them apart: the
-    trace's device times drift from it by up to milliseconds.) ``None`` when
-    the trace holds no device events."""
-    def run():
-        for _ in range(pad):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(0.01)
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        time.sleep(0.01)
-        for _ in range(pad):
-            fn()
-
-    device, _, _ = trace_device(run, 1)
-    if not device:
+    ``pad`` calls before and after them, set apart by 10 ms of idle card
+    (:func:`traced_window`); and the number of those events a call holds,
+    which must equal ``events`` where it is given. ``None`` when the trace
+    holds no device events."""
+    window = traced_window(label, fn, reps, pad, idle_s=0.01, per_call=events)
+    if window is None:
         return None
-    gaps, end = [], float(device[0]["ts"])
-    for i, e in enumerate(device):  # sorted by start; gaps[i] precedes device[i]
-        gaps.append(float(e["ts"]) - end)
-        end = max(end, float(e["ts"]) + float(e["dur"]))
-    first, last = sorted(sorted(range(len(device)), key=gaps.__getitem__)[-2:])
-    inside = device[first:last]
-    log(f"[layer times] {label}: {len(inside)} device events between gaps of "
-        f"{gaps[first] / 1e3:.1f} and {gaps[last] / 1e3:.1f} ms, {len(device)} in the trace "
-        f"of {reps + 2 * pad} calls")
-    require(min(gaps[first], gaps[last]) > 5000.0,
-            f"[layer times] {label}: the measured calls are not set apart by idle gaps")
-    require(inside and len(inside) % reps == 0,
-            f"[layer times] {label}: {len(inside)} device events for {reps} calls")
-    per_call = len(inside) // reps
-    require(events is None or per_call == events,
-            f"[layer times] {label}: {per_call} device events a call, want {events}")
-    return sum(float(e["dur"]) for e in inside) / reps / 1e3, per_call
+    inside = window[0]
+    return sum(float(e["dur"]) for e in inside) / reps / 1e3, len(inside) // reps
 
 
 def offsets_library(skey, cells):
@@ -1811,8 +1876,7 @@ def layer_device_ms(fused_calls, grid_calls):
 
 
 def random_centers(xyz, s, gen):
-    """``s`` distinct points of each cloud, drawn at random (FPS takes
-    N <= 8192 only)."""
+    """``s`` distinct points of each cloud, drawn at random."""
     pick = torch.argsort(torch.rand(xyz.shape[:2], generator=gen), dim=1)[:, :s]
     return index_points(xyz, pick.to(xyz.device)).contiguous()
 
@@ -1987,6 +2051,149 @@ def phase_new_times(fused_calls, grid_calls, pred, fused, grid_pred, request, sm
             + (", ".join(f"{c} {ms * 1e3:.1f} us" for c, ms in zip(times[name]["call"], dev_ms))
                if dev_ms else "not measured") + f" ({smi})")
     return times, medians
+
+
+# ---------------------------------------------------------------- FPS at any N
+
+
+FPS_LARGE_N = ((12289, 3072), (16384, 4096), (32768, 8192))  # (N, npoint), past 8192
+FPS_PREDICTOR_N = 16384  # the Predictor forward of phase 14, B=2
+
+
+def fps_work(b, n, npoint):
+    """``(bytes, ops)`` of one FPS call: the cloud and the starts read once,
+    the indices written once; ~10 ops a point an iteration (3 sub, 3 mul, 2
+    add, the running min, the argmax compare)."""
+    return b * n * 12 + b * 4 + b * npoint * 4, 10 * b * npoint * n
+
+
+def fps_clouds(dev, gen, n=N):
+    """``[(label, xyz (B, n, 3) on the card)]`` of the FPS checks' hard
+    cases: every point equal (every argmax after the first a tie, won by
+    index 0), a 1/64 grid (many exact ties) and the two clustered clouds of
+    :func:`clustered_clouds`."""
+    lattice = torch.randint(0, 64, (B, n, 3), generator=gen) / 64.0
+    return [("degenerate, every point equal", torch.full((B, n, 3), 0.3, device=dev)),
+            ("1/64 grid", lattice.to(dev)),
+            *[(f"clustered, {label}", c) for label, c in clustered_clouds(dev, gen, n)]]
+
+
+def timed_plain_fps(xyz, npoint, start):
+    """``(indices, ms)`` of one call of the plain FPS (CUDA events): its
+    Python loop of ``npoint`` iterations takes up to a second at N=32768,
+    so it runs once, for its check and its time alike."""
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    begin.record()
+    want = fps_torch(xyz, npoint, start)
+    end.record()
+    torch.cuda.synchronize()
+    return want, begin.elapsed_time(end)
+
+
+def fps_shape_times(label, xyz, npoint, start, want, smi, plain_ms=None):
+    """The FPS kernel at one shape: each thread count with an instance
+    (:func:`fps_plan`) held to the plain indices ``want`` and timed by CUDA
+    events (the sweep), then the default plan's wrapper time, its device
+    time (one device event a call, :func:`call_device_ms`), ns an iteration
+    (device µs / npoint) and bound. Returns the shape's entry."""
+    b, n = xyz.shape[0], xyz.shape[1]
+    iters = 20 if n <= 8192 else 2
+    sweep = {}
+    for threads in THREADS:
+        try:
+            fps_plan(n, threads)
+        except ValueError:
+            continue
+        got = fps_cuda(xyz, npoint, start, threads)
+        require(torch.equal(got, want),
+                f"[fps] {label} at {threads} threads: {int((got != want).sum())} mismatched")
+        # by events, and at N <= 8192 (host-paced below ~1024 points by
+        # events) in device time too
+        fn = functools.partial(fps_cuda, xyz, npoint, start, threads)
+        traced = (call_device_ms(f"fps {label} at {threads} threads", fn, reps=3, pad=2,
+                                 events=1) if n <= 8192 else None)
+        sweep[threads] = {"ms": time_ms(fn, iters=iters, warmup=1),
+                          "device_ms": None if traced is None else traced[0]}
+    plan = fps_plan(n)
+    ms = time_ms(lambda: fps_cuda(xyz, npoint, start), iters=iters, warmup=1)
+    reps, pad = (5, 3) if n <= 8192 else (2, 2)
+    with torch.inference_mode():
+        dev_ms = call_device_ms(f"fps {label}", functools.partial(fps_cuda, xyz, npoint, start),
+                                reps=reps, pad=pad, events=1)
+    bound_ms, bound_by = bound(*fps_work(b, n, npoint))
+    entry = {"call": label, "b": b, "n": n, "npoint": npoint, "threads": plan.threads,
+             "form": ("shared, streamed" if plan.streamed else "shared") if plan.shared
+             else "registers",
+             "ms": ms, "device_ms": None if dev_ms is None else dev_ms[0],
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "sweep": sweep}
+    entry["ns_per_iteration"] = (None if dev_ms is None else dev_ms[0] * 1e6 / npoint)
+    device = ("not measured" if dev_ms is None
+              else f"{dev_ms[0] * 1e3:.1f} us, {entry['ns_per_iteration']:.0f} ns an iteration")
+    plain = "" if plain_ms is None else f", plain {plain_ms * 1e3:.1f} us"
+    log(f"[fps] {label}, S={npoint}: {plan.threads} threads ({entry['form']}"
+        f"{f', {plan.streamed} streamed slots' if plan.streamed else ''}), wrapper "
+        f"{ms * 1e3:.1f} us, device {device}{plain}, bound {bound_ms * 1e3:.2f} us "
+        f"({bound_by}); sweep by events (device): "
+        + ", ".join(f"{t} threads {v['ms'] * 1e3:.1f} us"
+                    + ("" if v["device_ms"] is None else f" (device {v['device_ms'] * 1e3:.1f})")
+                    for t, v in sweep.items()) + f" ({smi})")
+    return entry
+
+
+def phase_fps(dev, gen, levels, grid_calls, sd, err, smi):
+    """FPS at any N: the kernel held exactly to its plain version at
+    N = 12289, 16384 and 32768 (B=16 from random starts drawn from a card
+    generator, B=1 from index 0), and at N=4096 on degenerate, 1/64-grid
+    and clustered clouds from random starts; the thread-count sweep, the
+    wrapper and device times and ns an iteration at the four slice shapes,
+    at Path G's SA1 and at each new N; one Predictor forward of B=2 clouds
+    of N=16384, its kernel calls held to their plain versions and its
+    log-probs finite and normalised. Returns the shapes' entries."""
+    card_gen = torch.Generator(device=dev).manual_seed(4)
+
+    def random_start(b, n):
+        return torch.randint(0, n, (b,), generator=card_gen, device=dev, dtype=torch.int32)
+
+    with torch.inference_mode():
+        for label, cloud in fps_clouds(dev, gen):
+            args = (cloud, SA[0][0], random_start(B, N))
+            log(f"[fps] N={N} {label}, random starts:")
+            err["fps"] = max(err["fps"], check_call("fps", "fps", args, fps_cuda(*args)))
+
+    entries = []
+    start = torch.zeros(B, dtype=torch.int32, device=dev)
+    for level, (npoint, _) in enumerate(SA):
+        xyz = levels[level]
+        entries.append(fps_shape_times(f"SA{level + 1} B={B} N={xyz.shape[1]}", xyz, npoint, start,
+                                       fps_torch(xyz, npoint, start), smi))
+    xyz, npoint, gstart = next(a for name, a, _ in grid_calls if name == "fps")
+    entries.append(fps_shape_times(f"Path G SA1 B={B} N={xyz.shape[1]}", xyz, npoint, gstart,
+                                   fps_torch(xyz, npoint, gstart), smi))
+    for n, npoint in FPS_LARGE_N:
+        for b in (B, 1):
+            xyz = torch.rand(b, n, 3, generator=gen).to(dev)
+            st = random_start(b, n) if b == B else torch.zeros(b, dtype=torch.int32, device=dev)
+            want, plain_ms = timed_plain_fps(xyz, npoint, st)
+            label = f"B={b} N={n}"
+            log(f"[fps] {label}, S={npoint}, {'random starts' if b == B else 'start 0'}:")
+            err["fps"] = max(err["fps"], check_call("fps", "fps", (xyz, npoint, st),
+                                                    fps_cuda(xyz, npoint, st), want=want))
+            entries.append(fps_shape_times(label, xyz, npoint, st, want, smi, plain_ms))
+            del xyz, want
+
+    # the serving path at N=16384, which raised at SA1 before the cap went:
+    # SA1 takes the grid ball query (N >= 8192), so a forward launches what
+    # one of Path G does
+    pred = Predictor.from_state_dict("pointnet2_semseg", sd, CLASSES, device=dev)
+    cloud = torch.rand(2, FPS_PREDICTOR_N, C, generator=gen).numpy()
+    out, calls = recorded_forward("fps", lambda: pred(cloud), "grid_forward", err)
+    check_log_probs("fps", [out], [(2, FPS_PREDICTOR_N, CLASSES)])
+    log(f"[fps] Predictor B=2 N={FPS_PREDICTOR_N}: FPS at N = "
+        + ", ".join(str(a[0].shape[1]) for name, a, _ in calls if name == "fps")
+        + ", every call equal to the plain version; log-probs finite and normalised")
+    return entries
 
 
 # ---------------------------------------------------------------- the launch path
@@ -2172,6 +2379,7 @@ def main():
     new_times, serve_medians = phase_new_times(fused_calls, grid_calls, pred, fused, grid_pred,
                                                request, smi)
     phase_launch_path(seg_calls[0][0], prep_args(grid_calls), smi)
+    fps_entries = phase_fps(dev, gen, levels, grid_calls, sd, err, smi)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
 
     summary = []
@@ -2217,6 +2425,10 @@ def main():
             per_shape = dict(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                              bound_by=t["bound_by"],
                              device_ms=None if device_ms is None else device_ms[name])
+            if name == "fps":
+                # phase 14: threads, ns an iteration and the thread-count
+                # sweep at the slice shapes, Path G's SA1 and the new N
+                per_shape["shapes"] = fps_entries
             library = None  # no single PyTorch call computes it
         else:
             # per train step: the sum over the 7 calls; the library call is

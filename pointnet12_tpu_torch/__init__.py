@@ -28,9 +28,11 @@ Layer map:
             eval SA layer
   kernels/  L1 wrappers of the CUDA kernels (launch counters), dispatch,
             the nvcc build, the kernel-vs-plain comparison masks
-  csrc/     L0 CUDA C++ sources: fps.cu, ballquery.cu, ballquery_grid.cu
-            (with the cell offsets), fused_sa.cu, threenn.cu, segsum.cu,
-            bn_stats.cu; neighbours.cuh, the searches they share
+  csrc/     L0 CUDA C++ sources: fps.cu (any N, one block a cloud),
+            ballquery.cu, grid_prep.cu (the grid's bounds, sorts and cell
+            offsets in one launch), ballquery_grid.cu, fused_sa.cu,
+            threenn.cu, segsum.cu, bn_stats.cu; neighbours.cuh, the
+            searches they share
   utils/    JAX -> PyTorch weight conversion, device and precision checks
 
 Importing the package loads no kernel and calls no compiler: the kernels

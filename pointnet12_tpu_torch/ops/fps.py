@@ -43,7 +43,8 @@ def farthest_point_sample(
     ``generator`` every cloud starts at index 0 (the JAX package's
     ``key=None``); a generator on ``xyz``'s device draws each cloud's start
     uniformly from ``[0, N)`` (its ``fps_key``). Returns ``(B, npoint)``
-    int32."""
+    int32. A CUDA tensor goes to the kernel (``kernels/fps_cuda.py``) at
+    every N, a CPU tensor to :func:`fps_torch`."""
     B, N, _ = xyz.shape
     if not 0 < npoint <= N:
         raise ValueError(f"npoint={npoint} must be in (0, {N}]")

@@ -33,13 +33,15 @@ from pointnet12_tpu.ops import interpolate as jax_interpolate
 
 from pointnet12_tpu_torch.kernels import dispatch, selfcheck
 from pointnet12_tpu_torch.kernels.ballquery_cuda import ballquery_cuda
-from pointnet12_tpu_torch.kernels.fps_cuda import fps_cuda
+from pointnet12_tpu_torch.kernels.fps_cuda import (
+    SHARED_SLOTS, THREADS, fps_cuda, fps_plan, register_slots,
+)
 from pointnet12_tpu_torch.kernels.threenn_cuda import three_nn_cuda
 from pointnet12_tpu_torch.nn.feature_propagation import FeaturePropagation
 from pointnet12_tpu_torch.nn.set_abstraction import SetAbstraction
 from pointnet12_tpu_torch.ops.ballquery import query_ball_point
 from pointnet12_tpu_torch.ops.distance import square_distance
-from pointnet12_tpu_torch.ops.fps import farthest_point_sample
+from pointnet12_tpu_torch.ops.fps import farthest_point_sample, fps_torch
 from pointnet12_tpu_torch.ops.gather import index_points
 from pointnet12_tpu_torch.ops.interpolate import three_interpolate, three_nn
 from pointnet12_tpu_torch.utils.jax_import import convert_shared_mlp
@@ -129,6 +131,144 @@ def test_fps_starts_every_cloud_at_index_0():
     got = farthest_point_sample(_t(_cloud(5, 3, 128, 3)), 8).numpy()
     assert (got[:, 0] == 0).all()
     assert all(len(set(row)) == 8 for row in got.tolist())
+
+
+def _fps_case(kind, n, seed):
+    """(1, n, 3) float32 clouds of the FPS checks: uniform, every point
+    equal (each argmax after the first a tie that index 0 wins), or on a
+    1/64 grid (many exact ties, both distance forms exact)."""
+    rng = np.random.RandomState(seed)
+    if kind == "degenerate":
+        return np.full((1, n, 3), 0.3, np.float32)
+    if kind == "grid":
+        return (rng.randint(0, 64, size=(1, n, 3)) / 64.0).astype(np.float32)
+    return rng.uniform(size=(1, n, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,n,start", [
+    ("uniform", 16384, 0), ("uniform", 12289, 0), ("uniform", 12289, 12288),
+    ("degenerate", 4096, 0), ("degenerate", 4096, 1234), ("grid", 4096, 0), ("grid", 4096, 77),
+])
+def test_fps_plain_matches_jnp_at_any_n_and_on_ties(kind, n, start):
+    # the plain version the kernel is held to on the card, against JAX's
+    # _fps_jnp from the same start: past the kernel's old 8192-point cap,
+    # and where every argmax is a tie
+    xyz = _fps_case(kind, n, seed=n)
+    st = np.array([start], np.int32)
+    got = fps_torch(_t(xyz), 64, _t(st))
+    want = np.asarray(jax_fps._fps_jnp(jnp.asarray(xyz), 64, jnp.asarray(st)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if kind == "degenerate":
+        assert (got.numpy()[0, 1:] == 0).all()
+
+
+@pytest.mark.parametrize("n", [1, 64, 255, 1024, 4096, 8192, 8193, 12289, 16384, 32768, 100000])
+def test_fps_plan_holds_every_n(n):
+    for threads in (None, *THREADS):
+        try:
+            plan = fps_plan(n, threads)
+        except ValueError:
+            assert threads is not None  # the default always has an instance
+            continue
+        assert plan.threads in THREADS
+        if plan.shared:
+            assert plan.slots == SHARED_SLOTS[plan.threads]
+            assert plan.streamed == max(0, -(-n // plan.threads) - plan.slots)
+            # the shared form's planes fit the block's 232448 bytes
+            assert 12 * plan.slots * plan.threads <= 232448 - 1280
+        else:
+            assert plan.streamed == 0 and plan.slots in register_slots(plan.threads)
+            assert plan.slots * plan.threads >= n
+            # the fewest points a thread that hold n
+            assert plan.slots == 1 or plan.slots // 2 * plan.threads < n
+            # 4 registers a point within the thread's share of 65536
+            assert 4 * plan.slots <= 65536 // plan.threads - 16
+
+
+def test_fps_plan_refuses_threads_without_an_instance():
+    with pytest.raises(ValueError, match="threads"):
+        fps_plan(4096, 32)  # 128 points a thread: neither form at 32 threads
+    with pytest.raises(ValueError, match="one of"):
+        fps_plan(64, 100)
+
+
+@pytest.mark.parametrize("n,npoint", [(4096, 1024), (8192, 1024), (12289, 3072), (32768, 8192)])
+def test_fps_cuda_launches_once_at_any_n(n, npoint, monkeypatch):
+    # the wrapper no longer refuses N > 8192: with the device check and the
+    # launch stubbed, a call reaches build.launch once, N unchanged, with a
+    # scratch buffer exactly when the plan streams
+    from pointnet12_tpu_torch.kernels import build
+    from pointnet12_tpu_torch.kernels import fps_cuda as fps_cuda_module
+
+    launched, made = [], []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        out = real_empty(*shape, **kw)
+        made.append(tuple(out.shape))
+        return out
+
+    def check_tensor(kernel, name, t, dtype, shape, device=None):
+        assert t.dtype == dtype and t.is_contiguous()
+        return tuple(t.shape)
+
+    monkeypatch.setattr(build, "check_tensor", check_tensor)
+    monkeypatch.setattr(build, "launch", lambda name, device, *args: launched.append(args))
+    monkeypatch.setattr(fps_cuda_module.torch, "empty", empty)
+    monkeypatch.setattr(fps_cuda, "launches", 0)  # the count goes back afterwards
+    b = 2
+    out = fps_cuda(torch.zeros(b, n, 3), npoint, torch.zeros(b, dtype=torch.int32))
+    plan = fps_plan(n)
+    assert out.shape == (b, npoint) and fps_cuda.launches == 1
+    assert len(launched) == 1
+    *_, scratch_ptr, b_, n_, npoint_, threads, slots, shared = launched[0]
+    assert (b_, n_, npoint_, threads, slots, shared) == (
+        b, n, npoint, plan.threads, plan.slots, int(plan.shared))
+    if plan.streamed:
+        assert made == [(b, npoint), (b, plan.streamed, plan.threads, 4)]
+        assert scratch_ptr is not None
+    else:
+        assert made == [(b, npoint)] and scratch_ptr is None
+    assert (n == 32768) == bool(plan.streamed)
+
+
+def _kernel_model(xyz, npoint, start, plan):
+    """The reduction order of ``csrc/fps.cu`` in numpy: thread t owns the
+    points [t*k, (t+1)*k), pads copy point 0; each thread's largest running
+    minimum and its lowest slot at it, each warp's largest as unsigned bits
+    and its lowest lane at it, the lowest warp at the block's largest."""
+    n = xyz.shape[0]
+    k = -(-n // plan.threads) if plan.shared else plan.slots
+    pts = xyz[np.where(np.arange(plan.threads * k) < n, np.arange(plan.threads * k), 0)]
+    dist = np.full(plan.threads * k, 1e10, np.float32)
+    out, far = [start], start
+    for _ in range(1, npoint):
+        d = pts - xyz[far]
+        dist = np.minimum(dist, (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2])
+        per_thread = dist.reshape(plan.threads, k)
+        best, slot = per_thread.max(1), per_thread.argmax(1)
+        bits = best.view(np.uint32).reshape(-1, 32)
+        lane = (bits == bits.max(1, keepdims=True)).argmax(1)
+        wbits = bits[np.arange(len(bits)), lane]
+        warp = int((wbits == wbits.max()).argmax())
+        t = warp * 32 + lane[warp]
+        far = int(t * k + slot[t])
+        out.append(far)
+    return np.array(out, np.int32)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "degenerate", "grid", "twins"])
+@pytest.mark.parametrize("n,threads", [(300, 64), (300, 32), (1000, 256), (1000, 1024)])
+def test_fps_kernel_reduction_order_gives_the_plain_indices(kind, n, threads):
+    # the tie and pad argument of csrc/fps.cu: index order is (warp, lane,
+    # slot) order and a pad never wins, so the kernel's reductions pick the
+    # plain version's argmax at every plan
+    xyz = (np.tile(_fps_case("uniform", n // 2, seed=3), (1, 2, 1)) if kind == "twins"
+           else _fps_case(kind, n, seed=5))[0]
+    want = fps_torch(_t(xyz[None]), 48, torch.tensor([7], dtype=torch.int32)).numpy()[0]
+    got = _kernel_model(xyz, 48, 7, fps_plan(xyz.shape[0], threads))
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("npoint", [0, 129])
