@@ -15,6 +15,10 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
 1. device: requires a CUDA card and prints ``nvidia-smi``'s name and power
    limit;
 2. precision and build: true fp32 matmuls, the nvcc build and its time;
+   ptxas's registers and shared memory of every kernel; for the kernels
+   redesigned for the tensor cores (``dense_bn_stats_mma``, both fused SA
+   kernels) their HMMA/HGMMA instructions counted in the SASS
+   (``cuobjdump -sass``), none failing the run;
 3. kernels: each CUDA kernel against its plain PyTorch version at every
    shape of the pointnet2_semseg slice (B=16, N=4096): FPS indices exact,
    ball-query indices exact off the radius boundary, 3-NN indices exact off
@@ -65,9 +69,12 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
    and bf16, at activation scale and with every column at mean/std 3
    (fp32 y within 1e-5 of the largest |y|, bf16 y within one ulp of the
    rounded product plus one of y, the statistics within 1e-5 of their
-   scale of the plain one-pass form of the kernel's own y), each timed
-   beside its plain version, ``F.linear`` alone and ``F.linear`` plus the
-   plain statistics, and its bound;
+   scale of the plain one-pass form of the kernel's own y), y, mean and
+   var the same bits over two launches, the bf16 statistics the bits of
+   ``stats_in_kernel_order`` (the kernel's summation order in plain ops)
+   of the kernel's own y, each timed beside its plain
+   version, ``F.linear`` alone (by events and in device time) and
+   ``F.linear`` plus the plain statistics, and its bound;
 9. the slice's main path, bf16 + SR with the fused statistics
    (``--bf16 --bf16_sr``, ``fused_bn_stats=True``): 10 Adam steps on
    phase 7's batch, every loss finite and the last below the first, per
@@ -92,7 +99,8 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
    neighbours), and every kernel call of that forward is held against its
    plain version; both fused kernels run at every SA level's inputs, and
    with three centers of every cloud moved out of every ball (the clamped
-   sentinel row), within 5e-4 off the radius boundary;
+   sentinel row), within 5e-4 off the radius boundary, each output the
+   same bits over two launches;
 11. Path G, 8192-point clouds with ``impl="auto"``: one request of
    (16, 8192, 9) grid clouds, per forward 1 grid ball query (SA1), 1
    grid prep, 3 ``ballquery.cu``, 4 FPS (at N=8192 too) and 4 3-NN
@@ -118,7 +126,9 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
    uniform and clustered clouds, equal indices, events and device time);
    the fused and unfused ``Predictor``'s clouds/sec at N=4096 and the
    N=8192 one's over windows; profiler traces of both paths' forwards with
-   each kernel's device µs;
+   each kernel's device µs; a table of the fused layers: the kernel's
+   device µs beside its SIMT and tensor-core bounds, its wrapper and the
+   unfused kernel path;
 13. the launch path: host ns of 1000 calls of each part of the segment
    sum's and the grid prep's wrappers (checks, allocation, the old launch's
    device switch and ``Stream`` object, the raw calls that replace them,
@@ -143,6 +153,10 @@ Every kernel's least time on the card (``bound_ms``) is the larger of the
 bytes it must move over 3.35 TB/s and the operations it does over
 67 TFLOP/s (fp32 outside the tensor cores; 989 TFLOP/s on the tensor
 cores for dense_bn_stats' bf16 product), counted from this run's inputs.
+The fused SA layers have two (``fused_bounds``): that one, and the chain's
+products as three TF32 products each at 495 TFLOP/s on the tensor cores
+beside the other ops at the SIMT rate, the larger of those two times and
+the bytes time; ``bound_ms`` is the lower of the two.
 Any failure raises and exits non-zero. Imports nothing of JAX. The last
 two lines are the ``{"kernels": [...]}`` summary of the nine kernels of
 ``KERNELS`` and the ``{"ok": true, "device": ...}`` line.
@@ -154,6 +168,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -166,7 +181,7 @@ import torch.nn.functional as F
 from pointnet12_tpu_torch.infer import Predictor, pad_batch
 from pointnet12_tpu_torch.kernels import build, selfcheck
 from pointnet12_tpu_torch.kernels.ballquery_cuda import ballquery_cuda
-from pointnet12_tpu_torch.kernels.bn_stats_cuda import dense_bn_stats_cuda
+from pointnet12_tpu_torch.kernels.bn_stats_cuda import dense_bn_stats_cuda, stats_in_kernel_order
 from pointnet12_tpu_torch.kernels.fps_cuda import THREADS, fps_cuda, fps_plan
 from pointnet12_tpu_torch.kernels.fused_sa_cuda import (
     fused_sa_eval_dense_cuda, fused_sa_eval_grid_cuda,
@@ -227,9 +242,10 @@ KERNELS = {
         replaces="pointnet12_tpu/kernels/segsum_pallas.py:160",
     ),
     # the train forward with fused_bn_stats: dense_1, dense_2 of SA1-SA4,
-    # then every layer of FP4-FP1 (bn_calls(), in launch order)
+    # then every layer of FP4-FP1 (bn_calls(), in launch order); the bf16
+    # step runs the tensor-core kernel (dense_bn_stats_kernel is fp32's)
     "dense_bn_stats": dict(
-        wrapper=dense_bn_stats_cuda, kernel="dense_bn_stats_kernel",
+        wrapper=dense_bn_stats_cuda, kernel="dense_bn_stats_mma",
         forward=0, step=0, fused_step=17, fused_forward=0, grid_forward=0,
         source="pointnet12_tpu_torch/csrc/bn_stats.cu",
         replaces="pointnet12_tpu/kernels/bn_stats_fused.py:144",
@@ -303,8 +319,12 @@ HOST_REPS = 1000  # calls of each part of the launch path
 # against the plain one-pass form of its own y (fp32 sums in other orders)
 BN_STATS_TOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32 op/s outside
-# the tensor cores, bf16 op/s on the tensor cores
-HBM_BYTES_PER_S, FP32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 989e12
+# the tensor cores, bf16 and TF32 op/s on the tensor cores
+HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+BF16_OPS_PER_S, TF32_OPS_PER_S = 989e12, 495e12
+# the kernels redesigned for the tensor cores, by the name their SASS
+# function carries: each must hold HMMA (mma.sync) or HGMMA (wgmma)
+TENSOR_CORE_KERNELS = ("dense_bn_stats_mma", "fused_sa_dense_kernel", "fused_sa_grid_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -361,7 +381,36 @@ def phase_device():
     return torch.device("cuda:0"), smi
 
 
+def cuobjdump():
+    """The CUDA toolkit's ``cuobjdump``: on PATH, else beside ``nvcc``."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    candidate = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    require(os.path.exists(candidate), "cuobjdump not found on PATH or beside nvcc")
+    return candidate
+
+
+def sass_mma_counts(path):
+    """``{function: count}`` of the HMMA (mma.sync) and HGMMA (wgmma)
+    instructions in the SASS of each kernel of the library at ``path``."""
+    sass = subprocess.run([cuobjdump(), "-sass", str(path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
+    """The nvcc build; ptxas's register and shared-memory report of every
+    kernel; for each kernel redesigned for the tensor cores its ptxas
+    report again and its count of HMMA/HGMMA instructions in the SASS
+    (``cuobjdump -sass``): it fails if one holds none."""
     require(torch.backends.cuda.matmul.allow_tf32 is False,
             "torch.backends.cuda.matmul.allow_tf32 must be False")
     torch.backends.cudnn.allow_tf32 = False
@@ -371,9 +420,23 @@ def phase_build():
     build.library()
     log(f"[build] {path.name}: {seconds:.2f} s"
         + (" (cached)" if not nvcc_log and seconds == 0.0 else ""))
-    for line in nvcc_log.splitlines():
+    lines = [line.strip() for line in nvcc_log.splitlines()]
+    for line in lines:
         if "Used" in line or "Compiling entry" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+            log(f"[build] {line}")
+    # ptxas prints each entry's name, its properties (stack, spills), then
+    # its registers and shared memory
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and any(k in line for k in TENSOR_CORE_KERNELS):
+            report = "; ".join(x.removeprefix("ptxas info    : ") for x in lines[i + 2:i + 4])
+            log(f"[build] tensor cores: {line.split(chr(39))[1]} ptxas: {report}")
+    counts = sass_mma_counts(path)
+    for kernel in TENSOR_CORE_KERNELS:
+        found = {fn: n for fn, n in counts.items() if kernel in fn}
+        require(found, f"[build] no SASS function for {kernel}")
+        for fn, n in found.items():
+            log(f"[build] tensor cores: {n} HMMA/HGMMA instructions in the SASS of {fn}")
+            require(n > 0, f"[build] {fn} holds no HMMA or HGMMA instruction")
 
 
 def level_clouds(dev, gen):
@@ -543,6 +606,14 @@ def bn_stats_error(args, got, want):
     return err, bad, report
 
 
+def same_bits(a, b):
+    """Whether two tensors hold the same bits (so -0 != +0 and NaN == NaN)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
 def bn_stats_work(x, co):
     """``(bytes, ops, peak op/s)`` of one dense_bn_stats call: x, W, y once,
     the fp32 bias, mean and var; 2 ops a product term, 4 an output (bias,
@@ -586,15 +657,29 @@ def phase_bn_kernel(dev, smi):
     log("[bn kernel] sr_to_bf16 on the card equals the CPU bit for bit (3 seeds)")
 
     err = 0.0
-    times = {d: {k: [] for k in ("ms", "plain_ms", "linear_ms", "linear_stats_ms",
-                                 "bound_ms", "bound_by")}
+    times = {d: {k: [] for k in ("ms", "plain_ms", "linear_ms", "linear_device_ms",
+                                 "linear_stats_ms", "bound_ms", "bound_by")}
              for d in ("bf16", "fp32")}
     for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for label, shape, co in bn_calls():
             for mean3 in (False, True):
                 args = bn_stats_inputs(shape, co, dtype, mean3, gen)
-                e = check_call("bn kernel", "dense_bn_stats", args, dense_bn_stats_cuda(*args))
+                got = dense_bn_stats_cuda(*args)
+                e = check_call("bn kernel", "dense_bn_stats", args, got)
                 err = max(err, e)
+                require(all(same_bits(a, b) for a, b in zip(got, dense_bn_stats_cuda(*args))),
+                        f"[bn kernel] {dname} {label}: y, mean or var differ between two "
+                        "launches on the same inputs")
+                if dtype == torch.bfloat16:
+                    # the tensor-core kernel's fixed order, modelled in plain ops
+                    model = stats_in_kernel_order(got[0])
+                    require(same_bits(got[1], model[0]) and same_bits(got[2], model[1]),
+                            f"[bn kernel] {label}: the statistics differ from the sums in "
+                            "the kernel's order (stats_in_kernel_order) of its own y")
+            log(f"[bn kernel] {dname} {label}: y, mean and var the same bits over two "
+                "launches (both input kinds)"
+                + ("; mean and var the bits of stats_in_kernel_order of the kernel's y"
+                   if dtype == torch.bfloat16 else ""))
             xx, w, b = args
 
             def linear_stats():
@@ -603,10 +688,12 @@ def phase_bn_kernel(dev, smi):
 
             nbytes, ops, peak = bn_stats_work(xx, co)
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+            linear_dev = call_device_ms(f"{dname} {label} F.linear", lambda: F.linear(xx, w))
             entry = {
                 "ms": time_ms(lambda: dense_bn_stats_cuda(xx, w, b), iters=20),
                 "plain_ms": time_ms(lambda: dense_bn_stats_torch(xx, w, b), iters=10),
                 "linear_ms": time_ms(lambda: F.linear(xx, w), iters=20),
+                "linear_device_ms": None if linear_dev is None else linear_dev[0],
                 "linear_stats_ms": time_ms(linear_stats, iters=10),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -615,13 +702,19 @@ def phase_bn_kernel(dev, smi):
                 times[dname][key].append(value)
             log(f"[bn times] {dname} {label} x {shape} Co={co}: wrapper "
                 f"{entry['ms'] * 1e3:.1f} us, plain {entry['plain_ms'] * 1e3:.1f} us, "
-                f"F.linear {entry['linear_ms'] * 1e3:.1f} us, F.linear + stats "
+                f"F.linear {entry['linear_ms'] * 1e3:.1f} us ("
+                + ("device not measured" if linear_dev is None
+                   else f"{entry['linear_device_ms'] * 1e3:.1f} us on the device")
+                + "), F.linear + stats "
                 f"{entry['linear_stats_ms'] * 1e3:.1f} us, bound "
                 f"{entry['bound_ms'] * 1e3:.2f} us ({entry['bound_by']}) ({smi})")
             del args, xx, w, b
     for dname, t in times.items():
+        lin_dev = (None if None in t["linear_device_ms"] else sum(t["linear_device_ms"]))
         log(f"[bn times] {dname} sum over the 17 shapes: wrapper {sum(t['ms']):.3f} ms, "
-            f"plain {sum(t['plain_ms']):.3f} ms, F.linear {sum(t['linear_ms']):.3f} ms, "
+            f"plain {sum(t['plain_ms']):.3f} ms, F.linear {sum(t['linear_ms']):.3f} ms ("
+            + ("device not measured" if lin_dev is None else f"{lin_dev:.3f} ms on the device")
+            + "), "
             f"F.linear + stats {sum(t['linear_stats_ms']):.3f} ms, bound "
             f"{sum(t['bound_ms']):.3f} ms ({smi})")
     return err, times
@@ -1566,7 +1659,7 @@ def phase_fused_grads(dev, gen):
                     f"cosine {n_cos}, relative L2 {n_rel})")
 
 
-def phase_fused_times(dev, state, batch, card_gen, smi):
+def phase_fused_times(dev, state, batch, card_gen, bn_times, smi):
     """Train-step medians over windows (bf16+SR fused, bf16+SR unfused,
     fp32 fused) with a profiler trace of each: busy time, idle share, top
     ops; for the bf16+SR fused step also the SR casts' device time (their
@@ -1604,10 +1697,19 @@ def phase_fused_times(dev, state, batch, card_gen, smi):
                 f"[fused profile] dense_bn_stats: {len(main)} + {len(final)} launches")
         bn_device = [sum(float(e["dur"]) for e in main[j::17] + final[j::17]) / steps / 1e3
                      for j in range(17)]
-        for (label, shape, co), ms in zip(bn_calls(), bn_device):
+        t = bn_times["bf16"]
+        for j, ((label, shape, co), ms) in enumerate(zip(bn_calls(), bn_device)):
+            lin = t["linear_device_ms"][j]
             log(f"[fused profile] dense_bn_stats {label} x {shape} Co={co}: device "
-                f"{ms * 1e3:.1f} us per launch ({smi})")
-        log(f"[fused profile] dense_bn_stats: {sum(bn_device) * 1e3:.1f} us per step ({smi})")
+                f"{ms * 1e3:.1f} us per launch (its two kernels), bound "
+                f"{t['bound_ms'][j] * 1e3:.2f} us ({t['bound_by'][j]}), F.linear "
+                + ("not measured" if lin is None else f"{lin * 1e3:.1f} us") + " on the "
+                f"device, {t['linear_ms'][j] * 1e3:.1f} us by events ({smi})")
+        lin = t["linear_device_ms"]
+        log(f"[fused profile] dense_bn_stats: {sum(bn_device) * 1e3:.1f} us per step on the "
+            f"device, bound {sum(t['bound_ms']) * 1e3:.1f} us, F.linear at the 17 shapes "
+            + ("not measured" if None in lin else f"{sum(lin) * 1e3:.1f} us")
+            + f" on the device, {sum(t['linear_ms']) * 1e3:.1f} us by events ({smi})")
     return medians, bn_device, spans["pn12::sr_to_bf16"]
 
 
@@ -1661,6 +1763,11 @@ def phase_fused_serve(dev, gen, sd, pred, err):
                 for name in FUSED:
                     got = KERNELS[name]["wrapper"](*a)
                     err[name] = max(err[name], check_call("fused kernels", name, a, got))
+                    require(same_bits(got, KERNELS[name]["wrapper"](*a)),
+                            f"[fused kernels] {name} {sa_level(a)}: the output differs "
+                            "between two launches on the same inputs")
+                log(f"[fused kernels] {sa_level(a)}: both kernels' outputs the same bits "
+                    "over two launches")
     return fused, launches, calls
 
 
@@ -1755,20 +1862,34 @@ def phase_prep_clouds(dev, gen, err, radius=0.1, s=1024):
 
 
 def fused_work(args, search):
-    """``(bytes, ops)`` of one fused layer call: its inputs and output once;
-    2 ops a multiply-add of the chain and 2 an output (bias, ReLU), 2 an
-    element of the gather (subtract, ReLU) and 1 of the K-max, and 9 a
-    point the neighbour search reads (``search``, counted on these
-    inputs)."""
+    """``(bytes, product ops, other ops)`` of one fused layer call: its
+    inputs and output once; 2 ops a multiply-add of the chain's products;
+    2 an output of a layer (bias, ReLU), 2 an element of the gather
+    (subtract, ReLU) and 1 of the K-max, and 9 a point the neighbour search
+    reads (``search``, counted on these inputs)."""
     _, k, xyz, centers, w, t, layers = args
     b, s, c1 = centers.shape[0], centers.shape[1], w.shape[2]
     rows, co = b * s * k, layers[-1][0].shape[1]
     nbytes = 4 * (xyz.numel() + centers.numel() + w.numel() + t.numel() + b * s * co
                   + sum(kern.numel() + bias.numel() for kern, bias in layers))
-    ops = 2 * rows * c1 + rows * co + 9 * search
-    for kern, _ in layers:
-        ops += 2 * rows * kern.numel() + 2 * rows * kern.shape[1]
-    return nbytes, ops
+    products = sum(2 * rows * kern.numel() for kern, _ in layers)
+    other = 2 * rows * c1 + rows * co + 9 * search + sum(2 * rows * kern.shape[1]
+                                                         for kern, _ in layers)
+    return nbytes, products, other
+
+
+def fused_bounds(nbytes, products, other):
+    """The two least times of a fused layer, each ``(ms, "bytes" or
+    "operations")``: on the SIMT units, every op at 67 TFLOP/s of fp32
+    (the larger of that and the bytes time); on the tensor cores, the
+    chain's products as three TF32 products each at 495 TFLOP/s beside the
+    other ops on the SIMT units, the two kinds of unit working at once (the
+    larger of the two op times and the bytes time)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    simt = (products + other) / FP32_OPS_PER_S * 1e3
+    tc = max(3 * products / TF32_OPS_PER_S, other / FP32_OPS_PER_S) * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= simt else (simt, "operations"),
+            (t_bytes, "bytes") if t_bytes >= tc else (tc, "operations"))
 
 
 def unfused_layer(radius, nsample, xyz, centers, w, t, layers):
@@ -1934,17 +2055,29 @@ def phase_new_times(fused_calls, grid_calls, pred, fused, grid_pred, request, sm
                                         "library_ms", "yardstick_ms", "device_ms",
                                         "wrapper_device_ms", "yardstick_device_ms",
                                         "plain_device_ms", "plain_device_events",
-                                        "library_device_ms")}
+                                        "library_device_ms")
+                    + (("bound_simt_ms", "bound_tc_ms") if name in FUSED else ())}
              for name in NEW}
 
     def add(name, call, ms, plain_ms, work, yardstick_ms, library_ms=None, extra=""):
-        bound_ms, bound_by = bound(*work)
+        both = ""
+        if name in FUSED:
+            # the table's bound is the lower of the SIMT and tensor-core ones:
+            # the least the card could take for the same work
+            simt, tc = fused_bounds(*work)
+            bound_ms, bound_by = min(simt, tc)
+            times[name]["bound_simt_ms"].append(simt[0])
+            times[name]["bound_tc_ms"].append(tc[0])
+            both = (f"; SIMT {simt[0] * 1e3:.2f} us ({simt[1]}), tensor cores "
+                    f"{tc[0] * 1e3:.2f} us ({tc[1]})")
+        else:
+            bound_ms, bound_by = bound(*work)
         for key, value in (("call", call), ("ms", ms), ("plain_ms", plain_ms),
                            ("bound_ms", bound_ms), ("bound_by", bound_by),
                            ("library_ms", library_ms), ("yardstick_ms", yardstick_ms)):
             times[name][key].append(value)
         log(f"[new times] {name} {call}: wrapper {ms * 1e3:.1f} us, plain "
-            f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by})"
+            f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}{both})"
             + ("" if library_ms is None else f", library {library_ms * 1e3:.1f} us")
             + ("" if yardstick_ms is None else f", yardstick {yardstick_ms * 1e3:.1f} us")
             + f"{extra} ({smi})")
@@ -2050,6 +2183,20 @@ def phase_new_times(fused_calls, grid_calls, pred, fused, grid_pred, request, sm
         log(f"[new times] {name} device per launch: "
             + (", ".join(f"{c} {ms * 1e3:.1f} us" for c, ms in zip(times[name]["call"], dev_ms))
                if dev_ms else "not measured") + f" ({smi})")
+    for name in FUSED:
+        # rows 8-9 a layer: the kernel in the Path F trace beside both
+        # bounds, its wrapper and the unfused kernel path traced alone
+        t = times[name]
+        for i, call in enumerate(t["call"]):
+            def us(key):
+                v = t[key][i] if i < len(t[key]) else None
+                return "not measured" if v is None else f"{v * 1e3:.1f} us"
+            log(f"[layer table] {name} {call}: kernel {us('device_ms')} on the device, bound "
+                f"{t['bound_ms'][i] * 1e3:.2f} us ({t['bound_by'][i]}; SIMT "
+                f"{t['bound_simt_ms'][i] * 1e3:.2f}, tensor cores {t['bound_tc_ms'][i] * 1e3:.2f}),"
+                f" wrapper {us('wrapper_device_ms')} device / {us('ms')} events, unfused "
+                f"kernel path {us('yardstick_device_ms')} device / {us('yardstick_ms')} events, "
+                f"plain {us('plain_ms')} ({smi})")
     return times, medians
 
 
@@ -2370,7 +2517,7 @@ def main():
     fstate, fgen, fused_launches, fused_eval_launches = phase_fused_train(dev, batch)
     err["dense_bn_stats"] = max(err["dense_bn_stats"], phase_fused_calls(fstate, batch, fgen))
     phase_fused_grads(dev, gen)
-    medians, bn_device, sr_cast = phase_fused_times(dev, fstate, batch, fgen, smi)
+    medians, bn_device, sr_cast = phase_fused_times(dev, fstate, batch, fgen, bn_times, smi)
     del fstate
     pred = Predictor.from_state_dict("pointnet2_semseg", sd, CLASSES, device=dev)
     fused, fused_serve_launches, fused_calls = phase_fused_serve(dev, gen, sd, pred, err)

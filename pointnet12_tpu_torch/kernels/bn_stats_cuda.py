@@ -1,24 +1,87 @@
 """Wrapper of ``csrc/bn_stats.cu``: Dense + BN statistics on the card.
 
-Replaces ``pointnet12_tpu/kernels/bn_stats_fused.py::_pallas_fwd``. The
-plain version is ``ops/bn_stats.py::dense_bn_stats_torch``; the kernel's
-statistics are summed in a fixed order, so they are the same from run to
-run. ``dense_bn_stats_cuda.launches`` counts the launches.
+Replaces ``pointnet12_tpu/kernels/bn_stats_fused.py::_pallas_fwd``. bf16
+operands run on the tensor cores (``mma.sync``), fp32 ones on the SIMT
+units. The plain version is ``ops/bn_stats.py::dense_bn_stats_torch``; the
+kernel's statistics are summed in a fixed order, so they are the same bits
+from run to run. ``dense_bn_stats_cuda.launches`` counts the launches.
 """
 
 import torch
 
 from pointnet12_tpu_torch.kernels import build
 
-MAX_COLUMN_TILES = 65535  # the kernel puts the column tiles on gridDim.y
+MAX_COLUMN_TILES = 65535  # the fp32 kernel puts the column tiles on gridDim.y
+MAX_BLOCKS = 2**31 - 1  # the bf16 kernel's items, on a grid of gridDim.x blocks
+MMA_ROWS = 128  # rows of the bf16 kernel's row tile (kMmaRows)
+WARPS_M = 4  # its warps along the rows, 32 rows each
+FINAL_LANES = 128  # lanes a column of the finalize pass (kFinalLanes)
 
 
-def row_tile(co: int) -> int:
-    """Rows of ``x`` per block: 64 when the block covers 64 output columns
-    (``co % 64 == 0``), else 128 with 32 columns (4096 outputs a block).
-    ``csrc/bn_stats.cu`` applies the same rule and refuses a workspace of
-    another size."""
-    return 64 if co % 64 == 0 else 128
+def row_tile(co: int, bf16: bool) -> int:
+    """Rows of ``x`` per row tile, so the workspace holds ``ceil(R / row_tile)``
+    partials: 128 for the bf16 tensor-core kernel; for the fp32 one 64 when
+    the block covers 64 output columns (``co % 64 == 0``), else 128 with 32
+    columns (4096 outputs a block). ``csrc/bn_stats.cu`` applies the same
+    rule and refuses a workspace of another size."""
+    return 64 if not bf16 and co % 64 == 0 else MMA_ROWS
+
+
+def column_tiles(co: int, bf16: bool) -> int:
+    """Column tiles of the kernel's grid: of 32, 64 or 128 columns (the least
+    that covers ``co``) for bf16, of 64 or 32 for fp32."""
+    if bf16:
+        bn = 32 if co <= 32 else 64 if co <= 64 else 128
+    else:
+        bn = 64 if co % 64 == 0 else 32
+    return -(-co // bn)
+
+
+def stats_in_kernel_order(y: torch.Tensor):
+    """``(mean, var)`` fp32 of ``y (..., Co)`` summed in the bf16 kernel's
+    fixed order, on ``y``'s device, in plain PyTorch fp32 ops (each rounded
+    as ``__fadd_rn`` rounds):
+
+    1. a thread sums its 4 rows of a column, rows ``32 wm + g + 8 q`` of
+       the row tile (warp ``wm``, ``g = lane / 4``, q = 0..3 in order);
+    2. a butterfly of shuffles (lane xor 4, 8, 16) sums the 8 values of
+       ``g``: ``((s0 + s1) + (s2 + s3)) + ((s4 + s5) + (s6 + s7))``;
+    3. the 4 warps add in order into the row tile's partial, from 0;
+    4. the finalize pass: lane ``l`` sums the partials of row tiles ``l,
+       l + 128, ...`` in order, lane 0 then the 128 lane sums in order;
+       ``mean = sum / R``, ``var = max(sum_sq / R - mean^2, 0)``.
+
+    The same sums over ``y * y`` (rounded) give ``sum_sq``. Rows past ``R``
+    add nothing. The kernel's statistics equal these bit for bit."""
+    v = y.detach().float().reshape(-1, y.shape[-1])
+    r, co = v.shape
+    tiles = -(-r // MMA_ROWS)
+    pad = torch.zeros((tiles * MMA_ROWS - r, co), dtype=torch.float32, device=v.device)
+    out = []
+    for vals in (v, v * v):
+        t = torch.cat([vals, pad]).reshape(tiles, WARPS_M, 4, 8, co)  # (tile, wm, q, g, c)
+        s = torch.zeros((tiles, WARPS_M, 8, co), dtype=torch.float32, device=v.device)
+        for q in range(4):
+            s = s + t[:, :, q]
+        s = s[:, :, 0::2] + s[:, :, 1::2]  # xor 4: g with g ^ 1
+        s = s[:, :, 0::2] + s[:, :, 1::2]  # xor 8: with g ^ 2
+        s = s[:, :, 0] + s[:, :, 1]        # xor 16: with g ^ 4
+        part = torch.zeros((tiles, co), dtype=torch.float32, device=v.device)
+        for wm in range(WARPS_M):
+            part = part + s[:, wm]
+        rounds = -(-tiles // FINAL_LANES)
+        part = torch.cat([part, torch.zeros((rounds * FINAL_LANES - tiles, co),
+                                            dtype=torch.float32, device=v.device)])
+        lanes = torch.zeros((FINAL_LANES, co), dtype=torch.float32, device=v.device)
+        for k in range(rounds):
+            lanes = lanes + part[k * FINAL_LANES:(k + 1) * FINAL_LANES]
+        total = torch.zeros((co,), dtype=torch.float32, device=v.device)
+        for lane in range(FINAL_LANES):
+            total = total + lanes[lane]
+        out.append(total)
+    rows = torch.tensor(float(r), dtype=torch.float32, device=v.device)
+    mean = out[0] / rows
+    return mean, torch.clamp_min(out[1] / rows - mean * mean, 0.0)
 
 
 def dense_bn_stats_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor):
@@ -39,9 +102,11 @@ def dense_bn_stats_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     r = x.numel() // ci if ci else 0
     if r == 0 or ci == 0 or co == 0:
         raise ValueError(f"dense_bn_stats: empty operands x {shape}, weight {(co, ci)}")
-    if r >= 2**31 or -(-co // (4096 // row_tile(co))) > MAX_COLUMN_TILES:
+    bf16 = x.dtype == torch.bfloat16
+    tiles = -(-r // row_tile(co, bf16))
+    cols = column_tiles(co, bf16)
+    if r >= 2**31 or (tiles * cols > MAX_BLOCKS if bf16 else cols > MAX_COLUMN_TILES):
         raise ValueError(f"dense_bn_stats: R={r}, Co={co} exceed the kernel's grid")
-    tiles = -(-r // row_tile(co))
     y = torch.empty(shape[:-1] + (co,), dtype=x.dtype, device=x.device)
     partials = torch.empty((tiles, 2, co), dtype=torch.float32, device=x.device)
     mean = torch.empty((co,), dtype=torch.float32, device=x.device)
@@ -49,7 +114,7 @@ def dense_bn_stats_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     build.launch(
         "dense_bn_stats", x.device, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         y.data_ptr(), partials.data_ptr(), mean.data_ptr(), var.data_ptr(), r, ci, co,
-        tiles, int(x.dtype == torch.bfloat16),
+        tiles, int(bf16),
     )
     dense_bn_stats_cuda.launches += 1
     return y, mean, var

@@ -439,3 +439,125 @@ def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
         fused_sa.fused_sa_eval(0.2, 8, xyz, centers, w, t, layers, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         grid.grid_prep(0.2, xyz, centers, impl="cuda")
+
+
+# ---------------------------------------------------------------- the kernel's three TF32 products
+# csrc/fused_sa.cu does each product of the chain as three TF32 products,
+# a_hi b_hi + (a_hi b_lo + a_lo b_hi) with hi = cvt.rna.tf32(v) and
+# lo = cvt.rna.tf32(v - hi). The CUDA kernel runs only on the card; its
+# arithmetic is modelled here in plain PyTorch and held to JAX.
+
+FUSED_ATOL = 5e-4  # the fused layers' bar, tests/test_kernels.py:321-426 and chip_smoke.py
+
+
+def tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` of finite fp32 values: the 13 low bits rounded
+    off to nearest, ties away from zero, as ``csrc/fused_sa.cu::tf32_rna``
+    computes it (the sign-magnitude bits plus half an ulp, then masked)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(v: torch.Tensor):
+    """``(hi, lo)`` of the kernel: ``hi = rna(v)``, ``lo = rna(v - hi)``."""
+    hi = tf32_rna(v)
+    return hi, tf32_rna(v - hi)
+
+
+def three_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernel sums it: the large product, then the two
+    small ones summed apart and added at the end (``a_lo b_lo`` dropped)."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def fused_layer_model(radius, nsample, xyz, new_xyz, w, t, layers, matmul):
+    """``ops/fused_sa.py::fused_sa_eval_torch`` with its products by
+    ``matmul``."""
+    idx = ballquery.ballquery_torch(radius, nsample, xyz, new_xyz)
+    acts = torch.relu(index_points(w, idx) - t[:, :, None, :])
+    for i, (kernel, bias) in enumerate(layers):
+        acts = matmul(acts, kernel) + bias
+        if i < len(layers) - 1:
+            acts = torch.relu(acts)
+    return torch.relu(acts.amax(dim=2))
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """The bit arithmetic picks the nearer of the two TF32 neighbours of v,
+    the one away from zero on a tie (float64 decides), and leaves an
+    ``hi`` whose 13 low bits are zero and a ``v - hi`` exact in fp32."""
+    rng = np.random.RandomState(0)
+    v = (rng.randn(20000) * np.exp2(rng.randint(-20, 20, 20000))).astype(np.float32)
+    bits = v.view(np.int32)
+    ties = (bits[:2000] & ~0x1FFF) | 0x1000  # exactly half-way
+    v = np.concatenate([v, ties.view(np.float32), -ties.view(np.float32)])
+    bits = v.view(np.int32)
+    lower = (bits & ~0x1FFF).view(np.float32).astype(np.float64)  # toward zero
+    upper = ((bits & ~0x1FFF) + 0x2000).view(np.float32).astype(np.float64)
+    d_lo = np.abs(v.astype(np.float64) - lower)
+    d_up = np.abs(upper - v.astype(np.float64))
+    want = np.where(d_up <= d_lo, upper, lower)
+    hi, lo = split_tf32(torch.from_numpy(v))
+    assert np.array_equal(hi.numpy().astype(np.float64), want)
+    assert not (hi.numpy().view(np.int32) & 0x1FFF).any()
+    assert not (lo.numpy().view(np.int32) & 0x1FFF).any()
+    diff = torch.from_numpy(v) - hi
+    assert np.array_equal(diff.numpy().astype(np.float64),
+                          v.astype(np.float64) - hi.numpy().astype(np.float64))
+    assert (d_up == d_lo).sum() >= 4000  # the ties are there, both signs
+
+
+def _chain_inputs(rng, b, n, s, c1, mlp):
+    """A unit-cube cloud, centers drawn from it, lifted rows w and t, and
+    the folded (kernel (Ci, Co), bias) chain, He-scaled as a trained
+    layer's activations would be."""
+    xyz = rng.uniform(size=(b, n, 3)).astype(np.float32)
+    sel = np.stack([rng.choice(n, s, replace=False) for _ in range(b)])
+    new_xyz = np.take_along_axis(xyz, sel[..., None], axis=1)
+    w = rng.randn(b, n, c1).astype(np.float32)
+    t = rng.randn(b, s, c1).astype(np.float32) * 0.3
+    layers, ci = [], c1
+    for co in mlp:
+        layers.append(((rng.randn(ci, co) * np.sqrt(2.0 / ci)).astype(np.float32),
+                       (rng.randn(co) * 0.1).astype(np.float32)))
+        ci = co
+    return xyz, new_xyz, w, t, layers
+
+
+@pytest.mark.parametrize("level,n,s,radius,c1,mlp", [
+    (1, 512, 128, 0.2, 32, (32, 64)),
+    (2, 256, 64, 0.3, 64, (64, 128)),
+    (3, 128, 32, 0.4, 128, (128, 256)),
+    (4, 64, 16, 0.8, 256, (256, 512)),
+])
+def test_three_tf32_chain_matches_jax_reference(level, n, s, radius, c1, mlp):
+    """A fused layer at the chain widths of SA``level`` (K=32, B=2), its
+    products as three TF32 products, against JAX's ``fused_sa_eval_ref``
+    on the same numpy inputs, off the radius boundary: within
+    ``FUSED_ATOL``, and as close as the port's exact fp32 plain version
+    comes. One-pass TF32 (``a_hi b_hi`` alone), which the kernel does not
+    do, is logged beside for the margin it would lose."""
+    rng = np.random.RandomState(level)
+    xyz, new_xyz, w, t, layers = _chain_inputs(rng, 2, n, s, c1, mlp)
+    want = np.asarray(jax_fused.fused_sa_eval_ref(
+        radius, 32, jnp.asarray(xyz), jnp.asarray(new_xyz), jnp.asarray(w), jnp.asarray(t),
+        tuple((jnp.asarray(k), jnp.asarray(b)) for k, b in layers)))
+    args = (radius, 32, _t(xyz), _t(new_xyz), _t(w), _t(t), [(_t(k), _t(b)) for k, b in layers])
+    ok = selfcheck.boundary_ok_mask(radius, _t(xyz), _t(new_xyz)).numpy()
+    assert ok.mean() > 0.9
+
+    def err(out):
+        return float(np.abs(out.numpy() - want)[ok].max())
+
+    three = err(fused_layer_model(*args, matmul=three_tf32_matmul))
+    exact = err(fused_sa.fused_sa_eval_torch(*args))
+    one = err(fused_layer_model(*args, matmul=lambda a, b: tf32_rna(a) @ tf32_rna(b)))
+    scale = float(np.abs(want).max())
+    print(f"SA{level}: three TF32 products {three:.3e} from JAX ({three / FUSED_ATOL:.4f} of "
+          f"the {FUSED_ATOL} bar; output up to {scale:.2f}), exact fp32 {exact:.3e}, "
+          f"one TF32 product {one:.3e}")
+    assert three < FUSED_ATOL
+    # fp32-faithful: within a few fp32 roundings of the output's scale
+    assert three <= max(4 * exact, 2e-6 * scale)

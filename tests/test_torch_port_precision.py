@@ -46,7 +46,9 @@ from pointnet12_tpu.train.loop import TrainState as JaxTrainState
 from pointnet12_tpu.train.precise_bn import recompute_batch_stats as jax_precise_bn
 
 from pointnet12_tpu_torch import infer
-from pointnet12_tpu_torch.kernels.bn_stats_cuda import dense_bn_stats_cuda
+from pointnet12_tpu_torch.kernels.bn_stats_cuda import (
+    MMA_ROWS, column_tiles, dense_bn_stats_cuda, row_tile, stats_in_kernel_order,
+)
 from pointnet12_tpu_torch.models import model_precision_kwargs
 from pointnet12_tpu_torch.nn import mlp as port_mlp
 from pointnet12_tpu_torch.nn.feature_propagation import FeaturePropagation
@@ -300,6 +302,82 @@ def test_dense_bn_stats_kernel_refuses_cpu_tensors():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         dense_bn_stats_cuda(x.half(), w.half(), b)
     assert dense_bn_stats_cuda.launches == 0
+
+
+# ---------------------------------------------------------------- the kernel's fixed-order statistics
+# csrc/bn_stats.cu takes the statistics of its bf16 y in a fixed order,
+# modelled by kernels/bn_stats_cuda.py::stats_in_kernel_order (which the card
+# matches bit for bit in chip_smoke.py); that order against float64 here.
+
+BN_STATS_TOL = 1e-5  # of the largest mean |y| and E[y^2]: chip_smoke.py's bar
+
+
+def _bn_inputs(rng, r, ci, co, mean3):
+    """bf16 operands at activation scale, or with every column of y at mean
+    3 standard deviations off zero (the one-pass variance's hard case), as
+    ``chip_smoke.py::bn_stats_inputs`` makes them on the card."""
+    x = rng.randn(r, ci).astype(np.float32)
+    if not mean3:
+        x = np.maximum(x, 0.0)
+    w = (rng.randn(co, ci) * np.sqrt(2.0 / ci)).astype(np.float32)
+    b = (3.0 * np.linalg.norm(w, axis=1) if mean3 else 0.1 * rng.randn(co)).astype(np.float32)
+    return _t(x).bfloat16(), _t(w).bfloat16(), _t(b)
+
+
+@pytest.mark.parametrize("r,ci,co,mean3", [
+    (20037, 32, 64, True), (20037, 32, 64, False), (131072 + 5, 64, 32, True), (1000, 256, 48, True),
+])
+def test_fixed_order_statistics_against_float64(r, ci, co, mean3):
+    """The bf16 kernel's statistics, summed in its order (fragment rows,
+    the butterfly, the row-tile partials, the finalize lanes; R spans one
+    to more than 8 rounds of the 128 finalize lanes and ragged row tiles),
+    against float64 statistics of the same y and against the plain
+    one-pass form, within ``BN_STATS_TOL`` of the largest mean |y| (mean)
+    and E[y^2] (var)."""
+    x, w, b = _bn_inputs(np.random.RandomState(r + co), r, ci, co, mean3)
+    y, plain_mean, plain_var = dense_bn_stats_torch(x, w, b)
+    mean, var = stats_in_kernel_order(y)
+    yd = y.double()
+    m_bar = BN_STATS_TOL * float(yd.abs().mean(0).max())
+    v_bar = BN_STATS_TOL * float((yd * yd).mean(0).max())
+    m64, v64 = yd.mean(0), yd.var(0, unbiased=False)
+    gaps = {
+        "float64": (float((mean.double() - m64).abs().max()),
+                    float((var.double() - v64).abs().max())),
+        "plain one-pass": (float((mean - plain_mean).abs().max()),
+                           float((var - plain_var).abs().max())),
+    }
+    print(f"R={r} Co={co} mean3={mean3}: " + "; ".join(
+        f"{k} mean {m:.3e} ({m / m_bar:.3f} of the bar), var {v:.3e} ({v / v_bar:.3f})"
+        for k, (m, v) in gaps.items()))
+    for m, v in gaps.values():
+        assert m <= m_bar and v <= v_bar
+
+
+def test_fixed_order_statistics_ignore_rows_past_r():
+    """Rows past R add nothing: R rows and the same R rows followed by a
+    ragged tile's worth of other values give the statistics of the first
+    R only; and the partials are per row tile of ``MMA_ROWS`` rows."""
+    rng = np.random.RandomState(3)
+    y = _t(rng.randn(3 * MMA_ROWS + 17, 24).astype(np.float32)).bfloat16()
+    mean, var = stats_in_kernel_order(y)
+    ref_m, ref_v = stats_in_kernel_order(y[: 3 * MMA_ROWS + 17])
+    assert torch.equal(mean, ref_m) and torch.equal(var, ref_v)
+    yd = y.double()
+    assert float((mean.double() - yd.mean(0)).abs().max()) < 1e-6
+    assert float((var.double() - yd.var(0, unbiased=False)).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("co,bf16,rows,cols", [
+    (32, True, 128, 1), (64, True, 128, 1), (128, True, 128, 1), (256, True, 128, 2),
+    (512, True, 128, 4), (48, True, 128, 1), (64, False, 64, 1), (48, False, 128, 2),
+])
+def test_bn_stats_grid_plan(co, bf16, rows, cols):
+    """The wrapper's workspace plan matches ``csrc/bn_stats.cu``: 128-row
+    tiles and 32/64/128-column tiles for bf16, the SIMT kernel's 64 x 64 or
+    128 x 32 tiles for fp32."""
+    assert row_tile(co, bf16) == rows
+    assert column_tiles(co, bf16) == cols
 
 
 # ---------------------------------------------------------------- modules in bf16
