@@ -22,7 +22,11 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
 3. kernels: each CUDA kernel against its plain PyTorch version at every
    shape of the pointnet2_semseg slice (B=16, N=4096): FPS indices exact,
    ball-query indices exact off the radius boundary, 3-NN indices exact off
-   distance ties and d2 within 1e-5;
+   distance ties and d2 within 1e-5; every call of ``ballquery.cu`` and
+   ``threenn.cu``, here and in every later phase, also bit for bit on every
+   row, no mask, against its order model (``first_k_in_plan_order``,
+   ``three_nn_in_plan_order``: the kernel's per-range results and merge in
+   plain ops);
 4. the slice: a ``Predictor`` of pointnet2_semseg (13 classes, random
    weights from a seed, non-trivial BN statistics) serves 4 requests of
    (16, 4096, 9) and one short request of 5 clouds through ``pad_batch``;
@@ -142,7 +146,18 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
    (the sweep: CUDA events, and device time up to N=8192), the default's
    wrapper and device time (one device event a call), ns an iteration and
    bound; one ``Predictor`` forward of B=2 clouds of N=16384, every kernel
-   call held to its plain version, log-probs finite and normalised.
+   call held to its plain version, log-probs finite and normalised;
+15. ball query and 3-NN at their edges (log prefix ``[neighbours]``): the
+   ball query at K = 1, 32, 64, 128, with centers out of every ball, on
+   clustered clouds whose centers reach K in the first range, at N = 12289
+   and 32768 (B=1), on 128 clouds of 1024 points each a center; 3-NN with
+   M = 3, 4, 17, 4097 and twinned references
+   across a range boundary, at 1, 2 and 4 ranges; each call held to its
+   plain version and to its order model. Then the plan sweep (``[sweep]``):
+   at each slice shape every instance (1-16 ranges; for the ball query one
+   or two centers a lane, or a warp a center) held to its order model and
+   timed on the device. The main path's device µs of both kernels at each
+   level are logged beside the earlier design's and the bound (phase 6).
 
 Every profiler trace whose launches are counted (phases 6, 7, 9, 12) or
 timed call by call holds padding calls before and after the measured
@@ -180,7 +195,10 @@ import torch.nn.functional as F
 
 from pointnet12_tpu_torch.infer import Predictor, pad_batch
 from pointnet12_tpu_torch.kernels import build, selfcheck
-from pointnet12_tpu_torch.kernels.ballquery_cuda import ballquery_cuda
+from pointnet12_tpu_torch.kernels import ballquery_cuda as ballquery_module
+from pointnet12_tpu_torch.kernels.ballquery_cuda import (
+    ballquery_cuda, ballquery_plan, first_k_in_plan_order,
+)
 from pointnet12_tpu_torch.kernels.bn_stats_cuda import dense_bn_stats_cuda, stats_in_kernel_order
 from pointnet12_tpu_torch.kernels.fps_cuda import THREADS, fps_cuda, fps_plan
 from pointnet12_tpu_torch.kernels.fused_sa_cuda import (
@@ -188,7 +206,9 @@ from pointnet12_tpu_torch.kernels.fused_sa_cuda import (
 )
 from pointnet12_tpu_torch.kernels.grid_cuda import Grid, ballquery_grid_cuda, grid_prep_cuda
 from pointnet12_tpu_torch.kernels.segsum_cuda import segment_matmul_cuda
-from pointnet12_tpu_torch.kernels.threenn_cuda import three_nn_cuda
+from pointnet12_tpu_torch.kernels.threenn_cuda import (
+    three_nn_cuda, three_nn_in_plan_order, three_nn_plan,
+)
 from pointnet12_tpu_torch.models import get_model, model_precision_kwargs
 from pointnet12_tpu_torch.nn import mlp as port_mlp
 from pointnet12_tpu_torch.ops import ballquery as ops_ballquery
@@ -519,7 +539,38 @@ def check_call(phase, name, args, got, want=None):
         require(err <= D2_ATOL, f"[{phase}] {label}: d2 error {err}")
     log(f"[{phase}] {label}: {report}")
     require(bad == 0, f"[{phase}] {label}: {bad} unmasked mismatches")
+    if name in ("ballquery", "three_nn"):
+        check_order_model(phase, name, args, got)
     return err
+
+
+def r2_of(radius):
+    """``radius * radius`` rounded to f32 once, as the wrappers pass it."""
+    return torch.tensor(radius * radius, dtype=torch.float32).item()
+
+
+def check_order_model(phase, name, args, got, plan=None):
+    """Hold a call of ``ballquery.cu`` or ``threenn.cu`` bit for bit, on every
+    row and with no mask, against its order model at ``plan`` (by default
+    the wrapper's): ``first_k_in_plan_order`` or ``three_nn_in_plan_order``,
+    the kernel's per-range results and merge in plain ops on the same
+    direct-form distances. Fails on any differing row."""
+    if name == "ballquery":
+        radius, k, xyz, centers = args
+        plan = plan or ballquery_plan(xyz.shape[0], xyz.shape[1], centers.shape[1], k)
+        want = first_k_in_plan_order(xyz, centers, r2_of(radius), k, plan)
+        differ = (got != want).any(-1)
+        label = f"B={xyz.shape[0]} N={xyz.shape[1]} S={centers.shape[1]} K={k} r={radius}"
+    else:
+        query, ref = args
+        plan = plan or three_nn_plan(query.shape[0], query.shape[1], ref.shape[1])
+        (d, i), (wd, wi) = got, three_nn_in_plan_order(query, ref, plan)
+        differ = ((d != wd) | (i != wi)).any(-1)
+        label = f"B={query.shape[0]} N={query.shape[1]} M={ref.shape[1]}"
+    bad = int(differ.sum())
+    log(f"[{phase}] {name} {label}: order model at {plan_label(plan)}: "
+        f"{differ.numel() - bad} of {differ.numel()} rows equal")
+    require(bad == 0, f"[{phase}] {name} {label}: {bad} rows differ from the order model")
 
 
 def segsum_error(got, want):
@@ -2343,6 +2394,140 @@ def phase_fps(dev, gen, levels, grid_calls, sd, err, smi):
     return entries
 
 
+# ------------------------------------------- ball query and 3-NN: plans and edges
+
+# device µs per launch at SA1-SA4 / FP1-FP4 in the main path's trace of
+# the two kernels' earlier design, a warp a center and a thread a query
+# (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W)
+EARLIER_DEVICE_US = {"ballquery": (112.5, 12.3, 4.2, 1.9), "three_nn": (56.2, 15.3, 5.2, 2.6)}
+NEIGHBOUR_LARGE_N = (12289, 32768)  # ball query at B=1, S = N/4
+LARGE_BATCH = 128  # clouds of SA2's 1024 points, every point a center
+THREE_NN_EDGE_M = (3, 4, 17, 4097)
+
+
+def log_neighbour_levels(device_ms, times, smi):
+    """Each level's device µs of the two redesigned kernels in the main
+    path's trace beside the earlier design's and the bound."""
+    for name, unit in (("ballquery", "SA"), ("three_nn", "FP")):
+        for level in range(len(SA)):
+            dev_txt = ("device not measured" if device_ms is None
+                       else f"device {device_ms[name][level] * 1e3:.1f} us")
+            log(f"[neighbours] {name} {unit}{level + 1}: {dev_txt} per launch "
+                f"(earlier design: {EARLIER_DEVICE_US[name][level]}), bound "
+                f"{times[name]['bound_ms'][level] * 1e3:.2f} us ({smi})")
+
+
+def plan_label(plan):
+    return " ".join(f"{key}={value}" for key, value in plan._asdict().items()
+                    if key in ("per_lane", "ranges", "groups"))
+
+
+def sweep_plans(name, args, default, smi):
+    """Every instance of the kernel at these inputs (each power-of-two split
+    that leaves 32 points a range; for the ball query at one and two
+    centers a lane, and a warp a center): held bit for bit to its order
+    model and timed on the device, one event a call. Returns
+    ``[{plan, device_ms, default}]``."""
+    if name == "ballquery":
+        radius, k, xyz, centers = args
+        b, n, s = xyz.shape[0], xyz.shape[1], centers.shape[1]
+        make = functools.partial(ballquery_plan, b, n, s, k)
+        run = functools.partial(ballquery_cuda, radius, k, xyz, centers)
+        per_lanes, points = ballquery_module.PER_LANE, n
+    else:
+        query, ref = args
+        b, n = query.shape[:2]
+        s = ref.shape[1]
+        make = functools.partial(three_nn_plan, b, n, s)
+        run = functools.partial(three_nn_cuda, query, ref)
+        per_lanes, points = (None,), s
+    rows = []
+    for per_lane in per_lanes:
+        for ranges in (1, 2, 4, 8, 16):
+            # per_lane 0 (the ball query's warp a center) scans one range
+            if ranges > 1 and (points // ranges < 32 or per_lane == 0):
+                continue
+            plan = (make(ranges=ranges) if per_lane is None
+                    else make(per_lane=per_lane, ranges=ranges))
+            with torch.inference_mode():
+                check_order_model("sweep", name, args, run(plan=plan), plan)
+                timed = call_device_ms(f"sweep {name} {plan_label(plan)}",
+                                       functools.partial(run, plan=plan), events=1)
+            rows.append({"plan": plan._asdict(), "default": plan == default,
+                         "device_ms": None if timed is None else timed[0]})
+            log(f"[sweep] {name} B={b} N={n} {'S' if name == 'ballquery' else 'M'}={s} "
+                f"{plan_label(plan)}{' (default)' if plan == default else ''}: "
+                + ("device not measured" if timed is None else f"device {timed[0] * 1e3:.1f} us")
+                + f" ({smi})")
+    timed = [r for r in rows if r["device_ms"] is not None]
+    if timed:
+        best = min(timed, key=lambda r: r["device_ms"])
+        log(f"[sweep] {name} N={n}: fastest {plan_label(type(default)(**best['plan']))}, "
+            f"{best['device_ms'] * 1e3:.1f} us; the default "
+            f"{next(r['device_ms'] for r in timed if r['default']) * 1e3:.1f} us")
+    return rows
+
+
+def phase_neighbours(dev, gen, levels, err, smi):
+    """The redesigned ball query and 3-NN at their edges, each call held to
+    its plain version (masked rows) and bit for bit to its order model:
+    the ball query at K = 1, 32, 64, 128 (r=0.2) on the slice's first
+    level, with three centers of each cloud out of every ball, on the
+    clustered clouds with half the centers on the spot (they reach K in
+    the first range), at N = 12289 and 32768 (B=1, S=N/4), and on a batch
+    of 128 clouds of 1024 points, each point a center (two groups of
+    centers a block); 3-NN with
+    M = 3, 4, 17, 4097 references and with the first level's 1024 centers
+    twice over (reference j and j + 1024 equal, on either side of the
+    boundary at two ranges) under queries on them, at the default plan and
+    at 2 and 4 ranges. Then the plan
+    sweep at the four slice shapes of each. Returns ``{name: sweep}``."""
+    xyz, centers = levels[0], levels[1]
+    with torch.inference_mode():
+        calls = [(0.2, k, xyz, centers) for k in (1, 32, 64, 128)]
+        calls.append((0.1, K, xyz, out_of_every_ball(centers)))
+        for label, cloud in clustered_clouds(dev, gen, N):
+            spot = cloud[:, :SA[0][0] // 2]
+            calls.append((0.1, K, cloud, torch.cat(
+                [spot, random_centers(cloud, SA[0][0] // 2, gen)], 1).contiguous()))
+            log(f"[neighbours] clustered cloud, {label}")
+        for n in NEIGHBOUR_LARGE_N:
+            cloud = torch.rand(1, n, 3, generator=gen).to(dev)
+            calls.append((0.1, K, cloud, random_centers(cloud, n // 4, gen)))
+        # a large batch, every point a center: two groups a block
+        cloud = torch.rand(LARGE_BATCH, SA[1][0] * 4, 3, generator=gen).to(dev)
+        require(ballquery_plan(LARGE_BATCH, cloud.shape[1], cloud.shape[1], K).groups > 1,
+                "[neighbours] the large batch's plan holds one group a block")
+        calls.append((0.2, K, cloud, cloud))
+        for args in calls:
+            err["ballquery"] = max(err["ballquery"],
+                                   check_call("neighbours", "ballquery", args, ballquery_cuda(*args)))
+        query = levels[0]
+        nn_calls = [(query, torch.rand(B, m, 3, generator=gen).to(dev)) for m in THREE_NN_EDGE_M]
+        twins = torch.cat([levels[1], levels[1]], 1).contiguous()
+        on_refs = torch.cat([levels[1][:, :512], query[:, 512:]], 1).contiguous()
+        nn_calls.append((on_refs, twins))
+        for args in nn_calls:
+            err["three_nn"] = max(err["three_nn"],
+                                  check_call("neighbours", "three_nn", args, three_nn_cuda(*args)))
+            b, n, m = args[0].shape[0], args[0].shape[1], args[1].shape[1]
+            for ranges in (2, 4):
+                if m // ranges >= 2:
+                    plan = three_nn_plan(b, n, m, ranges=ranges)
+                    check_order_model("neighbours", "three_nn", args,
+                                      three_nn_cuda(*args, plan=plan), plan)
+
+    sweeps = {"ballquery": [], "three_nn": []}
+    for level, (npoint, radius) in enumerate(SA):
+        x, c = levels[level], levels[level + 1]
+        sweeps["ballquery"].append(sweep_plans(
+            "ballquery", (radius, K, x, c),
+            ballquery_plan(B, x.shape[1], c.shape[1], K), smi))
+        sweeps["three_nn"].append(sweep_plans(
+            "three_nn", (x, c), three_nn_plan(B, x.shape[1], c.shape[1]), smi))
+    return sweeps
+
+
 # ---------------------------------------------------------------- the launch path
 
 
@@ -2505,6 +2690,7 @@ def main():
     phase_continuous(gen, pred, plain)
     times = phase_times(dev, levels, pred, plain, request, smi)
     device_ms = phase_profile(pred, request, smi)
+    log_neighbour_levels(device_ms, times, smi)
     del pred, plain
     state, batch, card_gen, train_launches, eval_launches = phase_train(dev, gen)
     seg_calls, err["segment_matmul"] = phase_train_calls(state, batch, card_gen)
@@ -2527,6 +2713,7 @@ def main():
                                                request, smi)
     phase_launch_path(seg_calls[0][0], prep_args(grid_calls), smi)
     fps_entries = phase_fps(dev, gen, levels, grid_calls, sd, err, smi)
+    sweeps = phase_neighbours(dev, gen, levels, err, smi)
     log(f"[done] {time.perf_counter() - t0:.1f} s")
 
     summary = []
@@ -2576,6 +2763,9 @@ def main():
                 # phase 14: threads, ns an iteration and the thread-count
                 # sweep at the slice shapes, Path G's SA1 and the new N
                 per_shape["shapes"] = fps_entries
+            else:
+                # phase 15: every plan at each slice shape, device time
+                per_shape["plans"] = sweeps[name]
             library = None  # no single PyTorch call computes it
         else:
             # per train step: the sum over the 7 calls; the library call is

@@ -52,8 +52,10 @@ _I = ctypes.c_int
 # would pass them as 32-bit ints and cut them.
 _SIGNATURES = {
     "pn12_fps": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "pn12_ballquery": (_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P),
-    "pn12_three_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "pn12_ballquery": (
+        _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "pn12_three_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "pn12_segment_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pn12_dense_bn_stats": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pn12_grid_prep": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P),

@@ -24,8 +24,9 @@ def boundary_ok_mask(radius, xyz, new_xyz, tol=1e-5) -> torch.Tensor:
 
 
 def tie_ok_mask(query_xyz, ref_xyz, tol=1e-6) -> torch.Tensor:
-    """(B, N) True where the 4 nearest references are pairwise separated by
-    more than ``tol``: rows where the 3-NN slot order is fp-stable."""
+    """(B, N) True where the 4 nearest references (all of them where there
+    are only 3) are pairwise separated by more than ``tol``: rows where the
+    3-NN slot order is fp-stable."""
     d2 = _direct_d2(query_xyz, ref_xyz)
-    low4 = torch.topk(d2, 4, dim=-1, largest=False, sorted=True).values
+    low4 = torch.topk(d2, min(4, d2.shape[-1]), dim=-1, largest=False, sorted=True).values
     return torch.diff(low4, dim=-1).min(dim=-1).values > tol

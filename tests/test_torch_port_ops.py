@@ -32,11 +32,16 @@ from pointnet12_tpu.ops import gather as jax_gather
 from pointnet12_tpu.ops import interpolate as jax_interpolate
 
 from pointnet12_tpu_torch.kernels import dispatch, selfcheck
-from pointnet12_tpu_torch.kernels.ballquery_cuda import ballquery_cuda
+from pointnet12_tpu_torch.kernels import ranges as range_layout
+from pointnet12_tpu_torch.kernels.ballquery_cuda import (
+    ballquery_cuda, ballquery_plan, first_k_in_plan_order,
+)
 from pointnet12_tpu_torch.kernels.fps_cuda import (
     SHARED_SLOTS, THREADS, fps_cuda, fps_plan, register_slots,
 )
-from pointnet12_tpu_torch.kernels.threenn_cuda import three_nn_cuda
+from pointnet12_tpu_torch.kernels.threenn_cuda import (
+    three_nn_cuda, three_nn_in_plan_order, three_nn_plan,
+)
 from pointnet12_tpu_torch.nn.feature_propagation import FeaturePropagation
 from pointnet12_tpu_torch.nn.set_abstraction import SetAbstraction
 from pointnet12_tpu_torch.ops.ballquery import query_ball_point
@@ -506,3 +511,277 @@ def test_modules_refuse_train_mode_and_unfolded_eval():
     port.eval()
     with pytest.raises(RuntimeError, match="fold_bn_"):
         port(x, x, None, torch.zeros(1, 4, 16))
+
+
+# ------------------------------------------- the range plans of the searches
+#
+# csrc/ballquery.cu and csrc/threenn.cu split a cloud into contiguous index
+# ranges, one warp a range, and merge the ranges' results; the plans pick
+# the split and first_k_in_plan_order / three_nn_in_plan_order write the
+# kernels' order in plain ops. On the card chip_smoke.py holds each kernel
+# to its model bit for bit; here the models are held to the JAX package.
+
+EDGE_N = (3, 33, 1000, 1024, 4096, 4097, 12289, 32768)
+SLICE_SA = ((4096, 1024, 0.1), (1024, 256, 0.2), (256, 64, 0.4), (64, 16, 0.8))
+# the decoder's levels: (queries, references), FP1-FP4
+SLICE_FP = ((4096, 1024), (1024, 256), (256, 64), (64, 16))
+BQ_SHAPES = [(16, n, max(1, n // 4), k) for n in EDGE_N for k in (1, 32, 64, 128) if k <= n]
+BQ_SHAPES += [(16, n, s, 32) for n, s, _ in SLICE_SA] + [(128, 1024, 1024, 32)]
+NN_SHAPES = [(16, n, max(3, n // 4)) for n in EDGE_N] + [(16, n, m) for n, m in SLICE_FP]
+
+
+def _grid_cloud(seed, *shape):
+    """Coordinates on a 1/64 grid in [0, 1): the direct and expansion forms
+    of a squared distance are both exact there."""
+    return (np.random.RandomState(seed).randint(0, 64, size=shape) / 64).astype(np.float32)
+
+
+def _ranges_of(length, n):
+    return [(lo, min(lo + length, n)) for lo in range(0, n, length)]
+
+
+def _assert_ranges_cover(plan, n):
+    ranges = _ranges_of(plan.length, n)
+    assert len(ranges) <= plan.ranges and ranges[0][0] == 0 and ranges[-1][1] == n
+    assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(ranges, ranges[1:]))
+    assert plan.chunk >= 32 and plan.chunk & (plan.chunk - 1) == 0
+    assert plan.ranges * plan.groups <= range_layout.MAX_WARPS
+
+
+@pytest.mark.parametrize("b,n,s,k", BQ_SHAPES)
+def test_ballquery_plan_covers_the_cloud_within_shared_memory(b, n, s, k):
+    plan = ballquery_plan(b, n, s, k)
+    _assert_ranges_cover(plan, n)
+    lanes = plan.groups * plan.per_lane * plan.ranges * 32
+    region = max(plan.ranges * plan.chunk * 16, plan.groups * plan.per_lane * 32 * (k | 1) * 4)
+    if plan.per_lane == 0:  # a warp a center: no staging, no lists
+        assert n <= 256 and plan.ranges == 1 and plan.shared_bytes == 0 and not plan.scratch
+    else:
+        assert plan.shared_bytes == region + lanes * 4 + (
+            0 if plan.scratch else lanes * (k | 1) * 4)
+    assert plan.shared_bytes <= range_layout.MAX_SHARED_BYTES
+    if (n, s, k) in {(sn, ss, 32) for sn, ss, _ in SLICE_SA}:
+        # two blocks an SM at the slice shapes, by shared memory and threads
+        assert plan.shared_bytes <= range_layout.TWO_BLOCKS_BYTES
+        assert 2 * plan.ranges * plan.groups * 32 <= 2048
+
+
+@pytest.mark.parametrize("b,n,m", NN_SHAPES)
+def test_three_nn_plan_covers_the_references_within_shared_memory(b, n, m):
+    plan = three_nn_plan(b, n, m)
+    _assert_ranges_cover(plan, m)
+    cand = 2 * plan.ranges * 3 * plan.groups * 32 * 4 if plan.ranges > 1 else 0
+    assert plan.shared_bytes == plan.ranges * plan.chunk * 16 + cand
+    assert plan.shared_bytes <= range_layout.MAX_SHARED_BYTES
+    if (n, m) in SLICE_FP:
+        assert plan.shared_bytes <= range_layout.TWO_BLOCKS_BYTES
+        assert 2 * plan.ranges * plan.groups * 32 <= 2048
+
+
+def test_plans_at_the_slice_shapes_fill_the_card():
+    # the defaults the plan sweep of chip_smoke.py chose (PERF.md): the
+    # first level's launch holds the warps the plan aims at, the small
+    # levels split into ranges
+    from pointnet12_tpu_torch.kernels import ballquery_cuda as bq, threenn_cuda as nn
+
+    sa = [ballquery_plan(16, n, s, 32) for n, s, _ in SLICE_SA]
+    assert [(p.per_lane, p.ranges) for p in sa] == [(2, 16), (1, 16), (0, 1), (0, 1)]
+    fp = [three_nn_plan(16, n, m) for n, m in SLICE_FP]
+    assert [p.ranges for p in fp] == [1, 4, 2, 1]
+    assert 16 * 1024 // (32 * sa[0].per_lane) * sa[0].ranges >= bq.WARPS
+    assert 16 * 4096 // 32 * fp[0].ranges >= nn.WARPS
+    # a large batch packs two groups of centers a block, the first level
+    # of 3-NN four groups of queries
+    assert ballquery_plan(128, 1024, 1024, 32)[:3] == (2, 2, 2)
+    assert fp[0].groups == 4
+
+
+def _jax_ballquery(radius, k, xyz, centers):
+    return np.asarray(jax_ballquery.query_ball_point(
+        radius, k, jnp.asarray(xyz), jnp.asarray(centers), impl="jnp"))
+
+
+def _r2(radius):
+    return float(np.float32(radius * radius))
+
+
+@pytest.mark.parametrize("b,n,s,k", BQ_SHAPES)
+def test_first_k_in_plan_order_matches_jnp_on_grid_clouds(b, n, s, k):
+    # the plan of the full shape, run on 2 clouds and up to 64 centers
+    plan = ballquery_plan(b, n, s, k)
+    radius = 0.2 if n >= 1024 else 0.4
+    xyz = _grid_cloud(n + k, 2, n, 3)
+    centers = np.concatenate([xyz[:, : min(s, 48)],  _grid_cloud(k, 2, 16, 3)], axis=1)
+    got = first_k_in_plan_order(_t(xyz), _t(centers), _r2(radius), k, plan).numpy()
+    np.testing.assert_array_equal(got, _jax_ballquery(radius, k, xyz, centers))
+
+
+@pytest.mark.parametrize("per_lane,ranges", [(0, 1), (1, 1), (1, 2), (2, 3), (1, 4), (2, 8), (1, 16)])
+@pytest.mark.parametrize("k", [1, 5, 32])
+def test_first_k_in_plan_order_matches_jnp_at_any_split(per_lane, ranges, k):
+    plan = ballquery_plan(2, 700, 40, k, per_lane=per_lane, ranges=ranges)
+    xyz, centers = _grid_cloud(3, 2, 700, 3), _grid_cloud(4, 2, 40, 3)
+    got = first_k_in_plan_order(_t(xyz), _t(centers), _r2(0.3), k, plan).numpy()
+    np.testing.assert_array_equal(got, _jax_ballquery(0.3, k, xyz, centers))
+
+
+def _straddling_cloud(length):
+    """A cloud far from the center but for four points at the indices
+    length-2 .. length+1: two at the end of range 0, two at the start of
+    range 1."""
+    xyz = np.full((1, 3 * length, 3), 5.0, np.float32)
+    xyz[0, length - 2:length + 2] = [[0.0, 0.0, 0.0], [0.25, 0, 0], [0, 0.25, 0], [0, 0, 0.25]]
+    return xyz
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, 8])
+def test_ballquery_hits_straddling_a_range_end_merge_in_index_order(k):
+    plan = ballquery_plan(1, 192, 1, k, ranges=3)
+    assert plan.length == 64
+    xyz, center = _straddling_cloud(64), np.zeros((1, 1, 3), np.float32)
+    got = first_k_in_plan_order(_t(xyz), _t(center), _r2(0.5), k, plan).numpy()
+    want = _jax_ballquery(0.5, k, xyz, center)
+    np.testing.assert_array_equal(got, want)
+    hits = [62, 63, 64, 65][:k]
+    assert got[0, 0].tolist() == hits + [62] * (k - len(hits))
+
+
+@pytest.mark.parametrize("k", [1, 16, 32])
+def test_ballquery_k_reached_inside_the_first_range(k):
+    # every point of the first range in radius: the row is its first k, the
+    # later ranges' hits never reach it
+    plan = ballquery_plan(2, 256, 8, k, ranges=4)
+    xyz = _grid_cloud(7, 2, 256, 3)
+    xyz[:, :plan.length] = 0.5
+    centers = np.full((2, 8, 3), 0.5, np.float32)
+    got = first_k_in_plan_order(_t(xyz), _t(centers), _r2(0.2), k, plan).numpy()
+    np.testing.assert_array_equal(got, _jax_ballquery(0.2, k, xyz, centers))
+    assert (got == np.arange(k)).all()
+
+
+@pytest.mark.parametrize("ranges", [1, 4])
+def test_ballquery_empty_balls_pad_with_n_in_plan_order(ranges):
+    plan = ballquery_plan(1, 300, 4, 32, ranges=ranges)
+    xyz = _grid_cloud(8, 1, 300, 3)
+    centers = np.concatenate([np.full((1, 2, 3), 10.0, np.float32), xyz[:, :2]], axis=1)
+    got = first_k_in_plan_order(_t(xyz), _t(centers), _r2(0.1), 32, plan).numpy()
+    np.testing.assert_array_equal(got, _jax_ballquery(0.1, 32, xyz, centers))
+    assert (got[0, :2] == 300).all() and (got[0, 2:] < 300).all()
+
+
+def _jax_three_nn(q, r):
+    d, i = jax_interpolate.three_nn(jnp.asarray(q), jnp.asarray(r), impl="jnp")
+    return np.asarray(d), np.asarray(i)
+
+
+@pytest.mark.parametrize("b,n,m", NN_SHAPES)
+def test_three_nn_in_plan_order_matches_jnp_on_grid_clouds(b, n, m):
+    # ties are common on the grid: the order of equal distances is held too
+    plan = three_nn_plan(b, n, m)
+    q = _grid_cloud(n, 2, min(n, 64), 3)
+    r = _grid_cloud(m + 1, 2, m, 3)
+    d, i = three_nn_in_plan_order(_t(q), _t(r), plan)
+    wd, wi = _jax_three_nn(q, r)
+    np.testing.assert_array_equal(i.numpy(), wi)
+    np.testing.assert_array_equal(d.numpy(), wd)
+
+
+@pytest.mark.parametrize("ranges", [1, 2, 3, 4, 8, 16])
+def test_three_nn_in_plan_order_matches_jnp_at_any_split(ranges):
+    plan = three_nn_plan(2, 200, 600, ranges=ranges)
+    q, r = _grid_cloud(5, 2, 200, 3), _grid_cloud(6, 2, 600, 3)
+    d, i = three_nn_in_plan_order(_t(q), _t(r), plan)
+    wd, wi = _jax_three_nn(q, r)
+    np.testing.assert_array_equal(i.numpy(), wi)
+    np.testing.assert_array_equal(d.numpy(), wd)
+
+
+@pytest.mark.parametrize("m", [3, 4, 17, 4097])
+def test_three_nn_twinned_references_across_a_range_boundary(m):
+    # reference j and j + length are the same point, and the query sits on
+    # it: the tie across the ranges goes to the lower index
+    ranges = 2 if m >= 4 else 1
+    plan = three_nn_plan(1, 64, m, ranges=ranges)
+    r = _grid_cloud(m, 1, m, 3)
+    if ranges > 1:
+        r[:, plan.length:2 * plan.length] = r[:, :min(plan.length, m - plan.length)]
+    q = np.concatenate([r[:, :min(m, 32)], _grid_cloud(9, 1, 32, 3)], axis=1)
+    d, i = three_nn_in_plan_order(_t(q), _t(r), plan)
+    wd, wi = _jax_three_nn(q, r)
+    np.testing.assert_array_equal(i.numpy(), wi)
+    np.testing.assert_array_equal(d.numpy(), wd)
+    if ranges > 1:  # query 0 sits on reference 0 and on its twin, `length`
+        assert (r[0, plan.length] == r[0, 0]).all()
+        assert i.numpy()[0, 0, 0] == 0 and d.numpy()[0, 0, 0] == 0.0
+
+
+def _stub_launch(monkeypatch, module):
+    """The wrapper's device check passes for a CPU tensor and the launch is
+    recorded, not run; the count goes back afterwards."""
+    from pointnet12_tpu_torch.kernels import build
+
+    launched = []
+
+    def check_tensor(kernel, name, t, dtype, shape, device=None):
+        assert t.dtype == dtype and t.is_contiguous()
+        return tuple(t.shape)
+
+    monkeypatch.setattr(build, "check_tensor", check_tensor)
+    monkeypatch.setattr(build, "launch", lambda name, device, *args: launched.append(args))
+    return launched
+
+
+@pytest.mark.parametrize("nsample", [65, 1000])
+def test_ballquery_cuda_refuses_nsample_above_n(nsample, monkeypatch):
+    # as ballquery_torch and JAX's lax.top_k refuse it
+    launched = _stub_launch(monkeypatch, ballquery_cuda)
+    monkeypatch.setattr(ballquery_cuda, "launches", 0)
+    xyz = torch.zeros(2, 64, 3)
+    with pytest.raises(ValueError, match="nsample"):
+        ballquery_cuda(0.2, nsample, xyz, xyz[:, :8].contiguous())
+    with pytest.raises(ValueError, match="nsample"):
+        query_ball_point(0.2, nsample, xyz, xyz[:, :8].contiguous(), impl="torch")
+    assert launched == [] and ballquery_cuda.launches == 0
+
+
+@pytest.mark.parametrize("b,n,s,k", [(16, 4096, 1024, 32), (16, 256, 64, 32), (16, 64, 16, 32),
+                                     (1, 12289, 3072, 64)])
+def test_ballquery_cuda_launches_once_with_its_plan(b, n, s, k, monkeypatch):
+    from pointnet12_tpu_torch.kernels import ballquery_cuda as module
+
+    launched = _stub_launch(monkeypatch, ballquery_cuda)
+    made, real_empty = [], torch.empty
+
+    def empty(*shape, **kw):
+        out = real_empty(*shape, **kw)
+        made.append(tuple(out.shape))
+        return out
+
+    monkeypatch.setattr(module.torch, "empty", empty)
+    monkeypatch.setattr(ballquery_cuda, "launches", 0)
+    out = ballquery_cuda(0.1, k, torch.zeros(b, n, 3), torch.zeros(b, s, 3))
+    plan = ballquery_plan(b, n, s, k)
+    assert out.shape == (b, s, k) and ballquery_cuda.launches == 1 and len(launched) == 1
+    *_, scratch_ptr, b_, n_, s_, k_, r2, per_lane, ranges, groups, length, shift, smem = launched[0]
+    assert (b_, n_, s_, k_, r2) == (b, n, s, k, _r2(0.1))
+    assert (per_lane, ranges, groups, length, 1 << shift, smem) == (
+        plan.per_lane, plan.ranges, plan.groups, plan.length, plan.chunk, plan.shared_bytes)
+    lists = b * -(-s // 32) * plan.ranges * 32 * (k | 1)
+    assert made == [(b, s, k)] + ([(lists,)] if plan.scratch else [])
+    assert (scratch_ptr is not None) == plan.scratch
+
+
+@pytest.mark.parametrize("b,n,m", [(16, 4096, 1024), (16, 1024, 256), (70000, 64, 16)])
+def test_three_nn_cuda_launches_once_with_its_plan(b, n, m, monkeypatch):
+    # one grid dimension over the blocks: no cap on B (the old kernel put
+    # the batch on gridDim.y, at most 65535)
+    launched = _stub_launch(monkeypatch, three_nn_cuda)
+    monkeypatch.setattr(three_nn_cuda, "launches", 0)
+    q, r = torch.zeros(b, n, 3), torch.zeros(b, m, 3)
+    d, i = three_nn_cuda(q, r)
+    plan = three_nn_plan(b, n, m)
+    assert d.shape == i.shape == (b, n, 3) and three_nn_cuda.launches == 1
+    *_, b_, n_, m_, ranges, groups, length, shift, smem = launched[0]
+    assert (b_, n_, m_) == (b, n, m)
+    assert (ranges, groups, length, 1 << shift, smem) == (
+        plan.ranges, plan.groups, plan.length, plan.chunk, plan.shared_bytes)
