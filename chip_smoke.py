@@ -9,6 +9,11 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --fp32-bn-step`` runs only phase 9's trace of the
+fp32 fused train step and its dense_bn_stats device µs per call: a copy of
+this file run from the root of another checkout measures that tree's
+kernel in the same call.)
+
 It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
 ``build/kernels/``), then:
 
@@ -16,9 +21,9 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
    limit;
 2. precision and build: true fp32 matmuls, the nvcc build and its time;
    ptxas's registers and shared memory of every kernel; for the kernels
-   redesigned for the tensor cores (``dense_bn_stats_mma``, both fused SA
-   kernels) their HMMA/HGMMA instructions counted in the SASS
-   (``cuobjdump -sass``), none failing the run;
+   redesigned for the tensor cores (``dense_bn_stats_mma``'s bf16 and fp32
+   instances, both fused SA kernels) their HMMA/HGMMA instructions counted
+   in the SASS (``cuobjdump -sass``), none failing the run;
 3. kernels: each CUDA kernel against its plain PyTorch version at every
    shape of the pointnet2_semseg slice (B=16, N=4096): FPS indices exact,
    ball-query indices exact off the radius boundary, 3-NN indices exact off
@@ -74,11 +79,12 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
    (fp32 y within 1e-5 of the largest |y|, bf16 y within one ulp of the
    rounded product plus one of y, the statistics within 1e-5 of their
    scale of the plain one-pass form of the kernel's own y), y, mean and
-   var the same bits over two launches, the bf16 statistics the bits of
-   ``stats_in_kernel_order`` (the kernel's summation order in plain ops)
-   of the kernel's own y, each timed beside its plain
+   var the same bits over two launches, the statistics (both dtypes) the
+   bits of ``stats_in_kernel_order`` (the kernel's summation order in
+   plain ops) of the kernel's own y, each timed beside its plain
    version, ``F.linear`` alone (by events and in device time) and
-   ``F.linear`` plus the plain statistics, and its bound;
+   ``F.linear`` plus the plain statistics, and its bound (fp32: the SIMT
+   bound and the tensor-core one of three TF32 products, as rows 8-9);
 9. the slice's main path, bf16 + SR with the fused statistics
    (``--bf16 --bf16_sr``, ``fused_bn_stats=True``): 10 Adam steps on
    phase 7's batch, every loss finite and the last below the first, per
@@ -91,8 +97,8 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
    ``tests/test_train_parity.py:155-169``, bf16 to the plain path's own
    spread under a one-ulp nudge of the input. Times: step medians of
    bf16+SR fused, bf16+SR unfused and fp32 fused, a profiler trace of
-   each, and in the bf16+SR fused step's the SR casts' device time and
-   dense_bn_stats' device µs at each shape;
+   each, in the bf16+SR fused step's the SR casts' device time, and in
+   both fused steps' dense_bn_stats' device µs at each shape;
 10. Path F, the fused eval set abstraction: a ``Predictor`` with
    ``impl="fused"`` of phase 4's weights serves 4 requests of (16, 4096, 9)
    grid clouds: per forward 1 fused grid SA layer (SA1), 3 fused dense
@@ -110,12 +116,18 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
    grid prep, 3 ``ballquery.cu``, 4 FPS (at N=8192 too) and 4 3-NN
    launches, log-probs within the bars of the plain path's; every kernel
    call of a continuous-cloud forward held against its plain version; the
-   grid ball query on the two clustered clouds of
-   ``tests/test_kernels.py:80-129`` scaled to N=8192; the grid prep
-   kernel against its plain version, all five tensors bit for bit, at
-   N=4096, 8192 and 32768 (S=1024) on uniform, clustered, 1/64-grid
-   (points on cell faces), degenerate (every point equal) and one-cell
-   clouds, and with centers out of every ball;
+   grid ball query with centers out of every ball, at a plan whose lists
+   overflow (compacted) and whose union streams in tiles, at K = 1 and
+   128, on the two clustered clouds of ``tests/test_kernels.py:80-129``
+   scaled to N=8192 (the spot's centers pass the threshold to the scan)
+   and at B=1, N=32768; the grid prep kernel against its plain version, all five
+   tensors bit for bit, at N=4096, 8192 and 32768 (S=1024) on uniform,
+   clustered, 1/64-grid (points on cell faces), degenerate (every point
+   equal) and one-cell clouds, and with centers out of every ball, with
+   the grid ball query on each. Every call of ``ballquery_grid.cu``, here
+   and in phase 12, is also held bit for bit on every row, no mask, to
+   the contract (``first_k_in_plan_order`` over one range), and logs how
+   many centers take each of its paths;
 12. times of the new kernels at each shape of Paths F and G: wrapper,
    plain version, bound, ``torch.searchsorted`` (the one PyTorch call for
    the cell offsets, held equal to their plain version first, timed in
@@ -128,6 +140,10 @@ It builds the CUDA kernels of ``pointnet12_tpu_torch/csrc`` (into
    plain prep and ``torch.searchsorted``); the ball-query crossover curve
    (the grid route and ``ballquery.cu`` at N = 4096, 8192, 16384, S = N/4,
    uniform and clustered clouds, equal indices, events and device time);
+   the grid plan sweep (``[sweep]``: run, list capacity, threshold, tile,
+   one at a time around the default) at Path G's SA1 and the crossover's
+   clustered cloud at N=8192, each instance held to the contract and its
+   kernel timed on the device;
    the fused and unfused ``Predictor``'s clouds/sec at N=4096 and the
    N=8192 one's over windows; profiler traces of both paths' forwards with
    each kernel's device µs; a table of the fused layers: the kernel's
@@ -168,10 +184,11 @@ Every kernel's least time on the card (``bound_ms``) is the larger of the
 bytes it must move over 3.35 TB/s and the operations it does over
 67 TFLOP/s (fp32 outside the tensor cores; 989 TFLOP/s on the tensor
 cores for dense_bn_stats' bf16 product), counted from this run's inputs.
-The fused SA layers have two (``fused_bounds``): that one, and the chain's
-products as three TF32 products each at 495 TFLOP/s on the tensor cores
-beside the other ops at the SIMT rate, the larger of those two times and
-the bytes time; ``bound_ms`` is the lower of the two.
+The fused SA layers and dense_bn_stats' fp32 route have two
+(``fused_bounds``): that one, and the products as three TF32 products
+each at 495 TFLOP/s on the tensor cores beside the other ops at the SIMT
+rate, the larger of those two times and the bytes time; ``bound_ms`` is
+the lower of the two.
 Any failure raises and exits non-zero. Imports nothing of JAX. The last
 two lines are the ``{"kernels": [...]}`` summary of the nine kernels of
 ``KERNELS`` and the ``{"ok": true, "device": ...}`` line.
@@ -204,6 +221,7 @@ from pointnet12_tpu_torch.kernels.fps_cuda import THREADS, fps_cuda, fps_plan
 from pointnet12_tpu_torch.kernels.fused_sa_cuda import (
     fused_sa_eval_dense_cuda, fused_sa_eval_grid_cuda,
 )
+from pointnet12_tpu_torch.kernels import grid_cuda as grid_module
 from pointnet12_tpu_torch.kernels.grid_cuda import Grid, ballquery_grid_cuda, grid_prep_cuda
 from pointnet12_tpu_torch.kernels.segsum_cuda import segment_matmul_cuda
 from pointnet12_tpu_torch.kernels.threenn_cuda import (
@@ -262,8 +280,8 @@ KERNELS = {
         replaces="pointnet12_tpu/kernels/segsum_pallas.py:160",
     ),
     # the train forward with fused_bn_stats: dense_1, dense_2 of SA1-SA4,
-    # then every layer of FP4-FP1 (bn_calls(), in launch order); the bf16
-    # step runs the tensor-core kernel (dense_bn_stats_kernel is fp32's)
+    # then every layer of FP4-FP1 (bn_calls(), in launch order); both
+    # dtypes run dense_bn_stats_mma, on the tensor cores
     "dense_bn_stats": dict(
         wrapper=dense_bn_stats_cuda, kernel="dense_bn_stats_mma",
         forward=0, step=0, fused_step=17, fused_forward=0, grid_forward=0,
@@ -342,9 +360,12 @@ BN_STATS_TOL = 1e-5
 # the tensor cores, bf16 and TF32 op/s on the tensor cores
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 BF16_OPS_PER_S, TF32_OPS_PER_S = 989e12, 495e12
-# the kernels redesigned for the tensor cores, by the name their SASS
-# function carries: each must hold HMMA (mma.sync) or HGMMA (wgmma)
-TENSOR_CORE_KERNELS = ("dense_bn_stats_mma", "fused_sa_dense_kernel", "fused_sa_grid_kernel")
+# the kernels redesigned for the tensor cores, by a part of the (mangled)
+# name their SASS functions carry: each must hold HMMA (mma.sync) or HGMMA
+# (wgmma). dense_bn_stats_mma<unsigned short, BN> is the bf16 route ("It"),
+# dense_bn_stats_mma<float, BN> the fp32 route ("If", three TF32 products).
+TENSOR_CORE_KERNELS = ("dense_bn_stats_mmaIt", "dense_bn_stats_mmaIf", "fused_sa_dense_kernel",
+                       "fused_sa_grid_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -539,7 +560,7 @@ def check_call(phase, name, args, got, want=None):
         require(err <= D2_ATOL, f"[{phase}] {label}: d2 error {err}")
     log(f"[{phase}] {label}: {report}")
     require(bad == 0, f"[{phase}] {label}: {bad} unmasked mismatches")
-    if name in ("ballquery", "three_nn"):
+    if name in ("ballquery", "three_nn", "ballquery_grid"):
         check_order_model(phase, name, args, got)
     return err
 
@@ -550,14 +571,19 @@ def r2_of(radius):
 
 
 def check_order_model(phase, name, args, got, plan=None):
-    """Hold a call of ``ballquery.cu`` or ``threenn.cu`` bit for bit, on every
-    row and with no mask, against its order model at ``plan`` (by default
-    the wrapper's): ``first_k_in_plan_order`` or ``three_nn_in_plan_order``,
-    the kernel's per-range results and merge in plain ops on the same
-    direct-form distances. Fails on any differing row."""
-    if name == "ballquery":
+    """Hold a call of ``ballquery.cu``, ``threenn.cu`` or
+    ``ballquery_grid.cu`` bit for bit, on every row and with no mask,
+    against its order model at ``plan`` (by default the wrapper's):
+    ``first_k_in_plan_order`` or ``three_nn_in_plan_order``, the kernel's
+    per-range results and merge in plain ops on the same direct-form
+    distances; for the grid kernel, whose rows are the contract at any of
+    its plans, ``first_k_in_plan_order`` over one range of all N points.
+    Fails on any differing row."""
+    if name in ("ballquery", "ballquery_grid"):
         radius, k, xyz, centers = args
-        plan = plan or ballquery_plan(xyz.shape[0], xyz.shape[1], centers.shape[1], k)
+        b, n, s = xyz.shape[0], xyz.shape[1], centers.shape[1]
+        plan = (ballquery_plan(b, n, s, k, per_lane=0) if name == "ballquery_grid"
+                else plan or ballquery_plan(b, n, s, k))
         want = first_k_in_plan_order(xyz, centers, r2_of(radius), k, plan)
         differ = (got != want).any(-1)
         label = f"B={xyz.shape[0]} N={xyz.shape[1]} S={centers.shape[1]} K={k} r={radius}"
@@ -568,8 +594,10 @@ def check_order_model(phase, name, args, got, plan=None):
         differ = ((d != wd) | (i != wi)).any(-1)
         label = f"B={query.shape[0]} N={query.shape[1]} M={ref.shape[1]}"
     bad = int(differ.sum())
-    log(f"[{phase}] {name} {label}: order model at {plan_label(plan)}: "
-        f"{differ.numel() - bad} of {differ.numel()} rows equal")
+    model = ("the contract (the order model over one range)" if name == "ballquery_grid"
+             else f"order model at {plan_label(plan)}")
+    log(f"[{phase}] {name} {label}: {model}: {differ.numel() - bad} of {differ.numel()} "
+        "rows equal")
     require(bad == 0, f"[{phase}] {name} {label}: {bad} rows differ from the order model")
 
 
@@ -665,15 +693,27 @@ def same_bits(a, b):
     return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
 
 
-def bn_stats_work(x, co):
-    """``(bytes, ops, peak op/s)`` of one dense_bn_stats call: x, W, y once,
-    the fp32 bias, mean and var; 2 ops a product term, 4 an output (bias,
-    y^2, two sums); the fp32 SIMT peak, or the bf16 tensor-core peak."""
-    es = x.element_size()
+def bn_stats_bounds(x, co):
+    """The least time of one dense_bn_stats call: x, W and y once, the fp32
+    bias, mean and var; 2 ops a product term, 4 an output (bias, y^2, two
+    sums). bf16: every op at the 989 TFLOP/s of the tensor cores. fp32 two
+    bounds, as ``fused_bounds`` gives the fused layers: every op at the
+    SIMT rate, or the products as three TF32 products on the tensor cores
+    beside the other ops at the SIMT rate; the least time is the lower.
+    -> ``{bound_ms, bound_by}`` (fp32 also ``bound_simt_ms``,
+    ``bound_tc_ms``)."""
     r, ci = x.numel() // x.shape[-1], x.shape[-1]
-    nbytes = es * (r * ci + co * ci + r * co) + 4 * 3 * co
-    peak = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    return nbytes, 2 * r * ci * co + 4 * r * co, peak
+    nbytes = x.element_size() * (r * ci + co * ci + r * co) + 4 * 3 * co
+    products, other = 2 * r * ci * co, 4 * r * co
+    if x.dtype == torch.bfloat16:
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (products + other) / BF16_OPS_PER_S * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    simt, tc = fused_bounds(nbytes, products, other)
+    least = min(simt, tc)
+    return {"bound_ms": least[0], "bound_by": least[1], "bound_simt_ms": simt[0],
+            "bound_tc_ms": tc[0]}
 
 
 def bn_stats_inputs(shape, co, dtype, mean3, gen):
@@ -709,7 +749,8 @@ def phase_bn_kernel(dev, smi):
 
     err = 0.0
     times = {d: {k: [] for k in ("ms", "plain_ms", "linear_ms", "linear_device_ms",
-                                 "linear_stats_ms", "bound_ms", "bound_by")}
+                                 "linear_stats_ms", "bound_ms", "bound_by")
+                 + (("bound_simt_ms", "bound_tc_ms") if d == "fp32" else ())}
              for d in ("bf16", "fp32")}
     for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for label, shape, co in bn_calls():
@@ -721,24 +762,21 @@ def phase_bn_kernel(dev, smi):
                 require(all(same_bits(a, b) for a, b in zip(got, dense_bn_stats_cuda(*args))),
                         f"[bn kernel] {dname} {label}: y, mean or var differ between two "
                         "launches on the same inputs")
-                if dtype == torch.bfloat16:
-                    # the tensor-core kernel's fixed order, modelled in plain ops
-                    model = stats_in_kernel_order(got[0])
-                    require(same_bits(got[1], model[0]) and same_bits(got[2], model[1]),
-                            f"[bn kernel] {label}: the statistics differ from the sums in "
-                            "the kernel's order (stats_in_kernel_order) of its own y")
+                # the kernel's fixed order, modelled in plain ops
+                model = stats_in_kernel_order(got[0])
+                require(same_bits(got[1], model[0]) and same_bits(got[2], model[1]),
+                        f"[bn kernel] {dname} {label}: the statistics differ from the sums in "
+                        "the kernel's order (stats_in_kernel_order) of its own y")
             log(f"[bn kernel] {dname} {label}: y, mean and var the same bits over two "
-                "launches (both input kinds)"
-                + ("; mean and var the bits of stats_in_kernel_order of the kernel's y"
-                   if dtype == torch.bfloat16 else ""))
+                "launches (both input kinds); mean and var the bits of "
+                "stats_in_kernel_order of the kernel's y")
             xx, w, b = args
 
             def linear_stats():
                 y = F.linear(xx, w) + (b if dtype == torch.float32 else b.to(dtype))
                 return one_pass_stats(y)
 
-            nbytes, ops, peak = bn_stats_work(xx, co)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+            bounds = bn_stats_bounds(xx, co)
             linear_dev = call_device_ms(f"{dname} {label} F.linear", lambda: F.linear(xx, w))
             entry = {
                 "ms": time_ms(lambda: dense_bn_stats_cuda(xx, w, b), iters=20),
@@ -746,8 +784,7 @@ def phase_bn_kernel(dev, smi):
                 "linear_ms": time_ms(lambda: F.linear(xx, w), iters=20),
                 "linear_device_ms": None if linear_dev is None else linear_dev[0],
                 "linear_stats_ms": time_ms(linear_stats, iters=10),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                **bounds,
             }
             for key, value in entry.items():
                 times[dname][key].append(value)
@@ -758,7 +795,10 @@ def phase_bn_kernel(dev, smi):
                    else f"{entry['linear_device_ms'] * 1e3:.1f} us on the device")
                 + "), F.linear + stats "
                 f"{entry['linear_stats_ms'] * 1e3:.1f} us, bound "
-                f"{entry['bound_ms'] * 1e3:.2f} us ({entry['bound_by']}) ({smi})")
+                f"{entry['bound_ms'] * 1e3:.2f} us ({entry['bound_by']}"
+                + ("" if dtype == torch.bfloat16 else
+                   f"; SIMT {entry['bound_simt_ms'] * 1e3:.2f}, tensor cores "
+                   f"{entry['bound_tc_ms'] * 1e3:.2f}") + f") ({smi})")
             del args, xx, w, b
     for dname, t in times.items():
         lin_dev = (None if None in t["linear_device_ms"] else sum(t["linear_device_ms"]))
@@ -767,7 +807,9 @@ def phase_bn_kernel(dev, smi):
             + ("device not measured" if lin_dev is None else f"{lin_dev:.3f} ms on the device")
             + "), "
             f"F.linear + stats {sum(t['linear_stats_ms']):.3f} ms, bound "
-            f"{sum(t['bound_ms']):.3f} ms ({smi})")
+            f"{sum(t['bound_ms']):.3f} ms"
+            + (f" (SIMT {sum(t['bound_simt_ms']):.3f}, tensor cores "
+               f"{sum(t['bound_tc_ms']):.3f})" if dname == "fp32" else "") + f" ({smi})")
     return err, times
 
 
@@ -1028,8 +1070,9 @@ def scanned_pairs(radius, xyz, centers):
 
 
 def grid_candidates(radius, xyz, centers):
-    """Points the grid search (``csrc/neighbours.cuh::first_k_grid``) reads
-    on these clouds: those of the up to 27 cells around each center."""
+    """Points the grid searches (``csrc/neighbours.cuh::first_k_grid`` of the
+    fused grid layer, the walk of ``csrc/ballquery_grid.cu``) read on these
+    clouds: those of the up to 27 cells around each center."""
     g = grid_prep(radius, xyz, centers, impl="torch")
     off, cell = g["offsets"].long(), g["sqkey"].long()
     res = GRID_RES
@@ -1710,24 +1753,68 @@ def phase_fused_grads(dev, gen):
                     f"cosine {n_cos}, relative L2 {n_rel})")
 
 
+def step_bn_device(label, fn, steps, smi, annotations=None):
+    """The device ms of each of a fused train step's 17 dense_bn_stats
+    calls, the kernel and its finalize pass, in a profiler trace of
+    ``steps`` steps (:func:`profile_device`): the trace's events named
+    ``dense_bn_stats``, two a call in launch order, of whatever kernel a
+    tree's ``csrc/bn_stats.cu`` has. ``None`` when the trace holds no
+    device events."""
+    device = profile_device(label, fn, steps, "step", smi, annotations=annotations)
+    if device is None:
+        return None
+    events = [e for e in device if "dense_bn_stats" in e.get("name", "")]
+    require(len(events) == 2 * 17 * steps,
+            f"[{label}] {len(events)} dense_bn_stats device events in {steps} steps")
+    require(all("finalize" in e["name"] for e in events[1::2]),
+            f"[{label}] dense_bn_stats: a kernel without its finalize pass")
+    per_call = [sum(float(e["dur"]) for e in events[2 * j::34] + events[2 * j + 1::34])
+                / steps / 1e3 for j in range(17)]
+    return per_call
+
+
+def log_bn_device(label, per_call, t, smi):
+    """Each dense_bn_stats call's device µs in a step's trace beside its
+    bound and ``F.linear``'s (phase 8's ``t`` of that dtype), then the sum."""
+    lin = t["linear_device_ms"]
+    for j, ((call, shape, co), ms) in enumerate(zip(bn_calls(), per_call)):
+        log(f"[{label}] dense_bn_stats {call} x {shape} Co={co}: device "
+            f"{ms * 1e3:.1f} us per launch (its two kernels), bound "
+            f"{t['bound_ms'][j] * 1e3:.2f} us ({t['bound_by'][j]}), F.linear "
+            + ("not measured" if lin[j] is None else f"{lin[j] * 1e3:.1f} us") + " on the "
+            f"device, {t['linear_ms'][j] * 1e3:.1f} us by events ({smi})")
+    simt = (f"; SIMT bound {sum(t['bound_simt_ms']) * 1e3:.1f} us, tensor cores "
+            f"{sum(t['bound_tc_ms']) * 1e3:.1f} us" if "bound_simt_ms" in t else "")
+    log(f"[{label}] dense_bn_stats: {sum(per_call) * 1e3:.1f} us per step on the device in "
+        f"17 launches, bound {sum(t['bound_ms']) * 1e3:.1f} us{simt}, F.linear at the 17 "
+        "shapes " + ("not measured" if None in lin else f"{sum(lin) * 1e3:.1f} us")
+        + f" on the device, {sum(t['linear_ms']) * 1e3:.1f} us by events ({smi})")
+
+
 def phase_fused_times(dev, state, batch, card_gen, bn_times, smi):
     """Train-step medians over windows (bf16+SR fused, bf16+SR unfused,
     fp32 fused) with a profiler trace of each: busy time, idle share, top
-    ops; for the bf16+SR fused step also the SR casts' device time (their
-    kernels, found through a ``record_function`` range around each cast)
-    and dense_bn_stats' device µs at each of its 17 shapes (its two
-    kernels)."""
+    ops; in the two fused steps' traces dense_bn_stats' device µs at each
+    of its 17 shapes (its two kernels: :func:`step_bn_device`), and in the
+    bf16+SR fused step's also the SR casts' device time (their kernels,
+    found through a ``record_function`` range around each cast). Returns
+    ``(medians, {dtype: per-call device ms}, SR casts)``."""
     step = loop.make_train_step()
     steps = 3
     medians = {"bf16+SR fused": report_windows(
         "train step bf16+SR fused", lambda: step(state, batch, card_gen), 5, 5, "step", smi)}
+    bn_device = {}
     for label, kw in (("bf16+SR unfused", dict(fused_bn_stats=False)),
                       ("fp32 fused", dict(dtype=torch.float32, sr=False, grouped_sr=False))):
         other = fused_state(dev, **kw)
         medians[label] = report_windows(f"train step {label}",
                                         lambda: step(other, batch, card_gen), 5, 5, "step", smi)
-        profile_device(f"{label} profile", lambda: step(other, batch, card_gen), steps,
-                       "step", smi)
+        if label == "fp32 fused":
+            bn_device["fp32"] = step_bn_device(f"{label} profile",
+                                               lambda: step(other, batch, card_gen), steps, smi)
+        else:
+            profile_device(f"{label} profile", lambda: step(other, batch, card_gen), steps,
+                           "step", smi)
         del other
 
     sr_cast = port_mlp.sr_to_bf16
@@ -1738,30 +1825,39 @@ def phase_fused_times(dev, state, batch, card_gen, bn_times, smi):
 
     spans = {"pn12::sr_to_bf16": None}
     with patched({(port_mlp, "sr_to_bf16"): annotated_sr}):
-        device = profile_device("fused profile", lambda: step(state, batch, card_gen), steps,
-                                "step", smi, annotations=spans)
-    bn_device = None
-    if device is not None:
-        main = launches_of(device, "dense_bn_stats")
-        final = launches_of(device, "dense_bn_stats", kernel="dense_bn_stats_finalize")
-        require(len(main) == len(final) == 17 * steps,
-                f"[fused profile] dense_bn_stats: {len(main)} + {len(final)} launches")
-        bn_device = [sum(float(e["dur"]) for e in main[j::17] + final[j::17]) / steps / 1e3
-                     for j in range(17)]
-        t = bn_times["bf16"]
-        for j, ((label, shape, co), ms) in enumerate(zip(bn_calls(), bn_device)):
-            lin = t["linear_device_ms"][j]
-            log(f"[fused profile] dense_bn_stats {label} x {shape} Co={co}: device "
-                f"{ms * 1e3:.1f} us per launch (its two kernels), bound "
-                f"{t['bound_ms'][j] * 1e3:.2f} us ({t['bound_by'][j]}), F.linear "
-                + ("not measured" if lin is None else f"{lin * 1e3:.1f} us") + " on the "
-                f"device, {t['linear_ms'][j] * 1e3:.1f} us by events ({smi})")
-        lin = t["linear_device_ms"]
-        log(f"[fused profile] dense_bn_stats: {sum(bn_device) * 1e3:.1f} us per step on the "
-            f"device, bound {sum(t['bound_ms']) * 1e3:.1f} us, F.linear at the 17 shapes "
-            + ("not measured" if None in lin else f"{sum(lin) * 1e3:.1f} us")
-            + f" on the device, {sum(t['linear_ms']) * 1e3:.1f} us by events ({smi})")
+        bn_device["bf16"] = step_bn_device(
+            "fused profile", lambda: step(state, batch, card_gen), steps, smi, annotations=spans)
+    for dname, label in (("bf16", "fused profile"), ("fp32", "fp32 fused profile")):
+        if bn_device[dname] is not None:
+            log_bn_device(label, bn_device[dname], bn_times[dname], smi)
     return medians, bn_device, spans["pn12::sr_to_bf16"]
+
+
+def fp32_bn_step_only():
+    """``--fp32-bn-step``: dense_bn_stats' device µs in the fp32 fused train
+    step alone (phase 9's trace and extraction, 3 steps), for comparing the
+    ``csrc/bn_stats.cu`` of two trees in one call: run a copy of this file
+    from the root of each checkout. It uses only the port's entry points
+    (the train state and step, the build), so an older tree runs it too."""
+    dev, smi = phase_device()
+    build.build()
+    build.library()
+    gen = torch.Generator().manual_seed(0)
+    points = torch.rand(B, N, C, generator=gen).to(dev)
+    batch = {"points": points, "label": labelled_clouds(points)}
+    state = fused_state(dev, dtype=torch.float32, sr=False, grouped_sr=False)
+    step = loop.make_train_step()
+    card_gen = torch.Generator(device=dev).manual_seed(2)
+    per_call = step_bn_device("fp32 fused profile", lambda: step(state, batch, card_gen), 3,
+                                 smi)
+    require(per_call is not None, "the fp32 fused step's trace holds no device events")
+    for (call, shape, co), ms in zip(bn_calls(), per_call):
+        log(f"[fp32 bn step] dense_bn_stats {call} x {shape} Co={co}: device {ms * 1e3:.1f} us "
+            f"per launch (its two kernels) ({smi})")
+    log(f"[fp32 bn step] dense_bn_stats: {sum(per_call) * 1e3:.1f} us per fp32 fused step on "
+        f"the device in 17 launches ({smi})")
+    print(smi)
+    print(json.dumps({"fp32_fused_step_dense_bn_stats_device_ms": per_call}))
 
 
 # ---------------------------------------------------------------- Path F and Path G
@@ -1858,17 +1954,44 @@ def phase_grid_serve(dev, gen, sd, err):
     start = torch.zeros(B, dtype=torch.int32, device=dev)
     with torch.inference_mode():
         radius, nsample, xyz, centers = next(a for n, a, _ in calls if n == "ballquery_grid")
+        # K=1 with a capacity of 4: a center of more hits cuts its list
+        forced = grid_module.grid_plan(B, N_GRID, centers.shape[1], 1, capacity=4, tile=256)
         cases = [("continuous, 3 centers a cloud out of every ball", xyz,
-                  out_of_every_ball(centers))]
+                  out_of_every_ball(centers), nsample, None),
+                 (f"continuous, K=1, lists over capacity {forced.capacity} and the union over "
+                  f"a tile of {forced.tile} points", xyz, centers, 1, forced)]
+        cases += [(f"continuous, K={k}", xyz, centers, k, None) for k in (1, 128)]
+        # the spot's cell holds thousands of points: its centers pass the threshold
         for label, cloud in clustered_clouds(dev, gen):
             fps_idx = fps_cuda(cloud, SA[0][0], start)
-            cases.append((label, cloud, index_points(cloud, fps_idx).contiguous()))
-        for label, cloud, cs in cases:
-            log(f"[grid kernels] {label}:")
-            a = (radius, nsample, cloud, cs)
+            cases.append((label, cloud, index_points(cloud, fps_idx).contiguous(), nsample,
+                          None))
+        cloud = torch.rand(1, 4 * N_GRID, 3, generator=gen).to(dev)
+        cases.append((f"B=1 N={4 * N_GRID}", cloud, random_centers(cloud, N_GRID, gen),
+                      nsample, None))
+        for label, cloud, cs, k, plan in cases:
+            a = (radius, k, cloud, cs)
+            log(f"[grid kernels] {label}: {grid_paths(a, plan)}")
             err["ballquery_grid"] = max(err["ballquery_grid"], check_call(
-                "grid kernels", "ballquery_grid", a, ballquery_grid_cuda(*a)))
+                "grid kernels", "ballquery_grid", a, ballquery_grid_cuda(*a, plan=plan)))
     return pred, launches, calls
+
+
+def grid_paths(args, plan=None):
+    """The grid kernel's plan for ``args`` and how many centers take each of
+    its paths there (``grid_cuda.center_paths``: the list, the scan over the
+    threshold, the list compacted over the capacity), from the plain grid
+    prep."""
+    radius, k, xyz, centers = args
+    plan = plan or grid_module.grid_plan(xyz.shape[0], xyz.shape[1], centers.shape[1], k)
+    step = max(1, 2**25 // (xyz.shape[0] * xyz.shape[1]))  # centers a chunk
+    hits = torch.cat([(square_distance(centers[:, i:i + step], xyz) <= r2_of(radius)).sum(-1)
+                      for i in range(0, centers.shape[1], step)], dim=1)
+    paths = grid_module.center_paths(grid_prep_torch(radius, xyz, centers), hits, plan)
+    counts = torch.bincount(paths.flatten().long(), minlength=3).tolist()
+    return (f"run={plan.run} capacity={plan.capacity} threshold={plan.threshold} "
+            f"tile={plan.tile}; centers by path: list {counts[0]}, scan over the threshold "
+            f"{counts[1]}, list compacted over the capacity {counts[2]}")
 
 
 def prep_clouds(n, gen):
@@ -1897,7 +2020,8 @@ def phase_prep_clouds(dev, gen, err, radius=0.1, s=1024):
     :func:`prep_clouds`, and on uniform clouds with three centers a cloud
     out of every ball (outside the bounding box); and at N=32768, a list
     too long to stage in shared memory, where the kernel takes its other
-    form (keys recomputed, scattered to device memory)."""
+    form (keys recomputed, scattered to device memory). The grid ball query
+    (K=32) on each: held to its plain version and to the contract."""
     for n in (4096, 8192, 32768):
         clouds = prep_clouds(n, gen)
         xyz = clouds[0][1].to(dev)
@@ -1910,6 +2034,10 @@ def phase_prep_clouds(dev, gen, err, radius=0.1, s=1024):
             args = (radius, xyz, centers)
             err["grid_prep"] = max(err["grid_prep"], check_call(
                 "grid prep", "grid_prep", args, grid_prep_cuda(*args)))
+            args = (radius, K, xyz, centers)
+            log(f"[grid prep] the grid ball query: {grid_paths(args)}")
+            err["ballquery_grid"] = max(err["ballquery_grid"], check_call(
+                "grid prep", "ballquery_grid", args, ballquery_grid_cuda(*args)))
 
 
 def fused_work(args, search):
@@ -2069,7 +2197,10 @@ def crossover_curve(dev, smi):
             centers = random_centers(xyz, n // 4, gen)
             args = (radius, K, xyz, centers)
             with torch.inference_mode():
-                require(torch.equal(ballquery_grid_cuda(*args), ballquery_cuda(*args)),
+                got = ballquery_grid_cuda(*args)
+                log(f"[crossover] N={n} {kind}: {grid_paths(args)}")
+                check_order_model("crossover", "ballquery_grid", args, got)
+                require(torch.equal(got, ballquery_cuda(*args)),
                         f"[crossover] N={n} {kind}: the grid and scan routes differ")
                 grid_dev = call_device_ms(f"crossover grid N={n} {kind}",
                                           functools.partial(ballquery_grid_cuda, *args),
@@ -2089,6 +2220,56 @@ def crossover_curve(dev, smi):
                 f"{row['grid_ms'] * 1e3:.1f} us, scan {row['scan_ms'] * 1e3:.1f} us; "
                 f"{dev_txt} ({smi})")
             del xyz, centers, args
+    return rows
+
+
+def grid_kernel_device_ms(label, fn):
+    """Device ms of the grid ball query's kernel alone (not its prep) per
+    call of ``fn``, a ``ballquery_grid_cuda`` call of two device events, in
+    a padded trace (:func:`traced_window`); ``None`` without device
+    events."""
+    window = traced_window(label, fn, reps=5, pad=3, idle_s=0.01, per_call=2)
+    if window is None:
+        return None
+    return sum(float(e["dur"]) for e in window[0]
+               if "ballquery_grid_kernel" in e.get("name", "")) / 5 / 1e3
+
+
+def grid_sweep(label, args, smi):
+    """The grid plan sweep at ``args``: around the default plan, one knob at
+    a time, every run (8-128 centers a block), list capacity (32-256),
+    threshold (2-16 times a uniform cloud's points in a cell, or none) and
+    tile (512-8192 points), each instance held bit for bit to the contract
+    and its kernel timed on the device. Returns ``[{plan, device_ms,
+    default}]``."""
+    radius, k, xyz, centers = args
+    b, n, s = xyz.shape[0], xyz.shape[1], centers.shape[1]
+    default = grid_module.grid_plan(b, n, s, k)
+    uniform = -(-n // GRID_RES**3)
+    knobs = {"run": (8, 16, 32, 64, 128), "capacity": (32, 64, 96, 128, 256),
+             "threshold": (2 * uniform, 4 * uniform, 8 * uniform, 16 * uniform,
+                           grid_module.NO_THRESHOLD),
+             "tile": (512, 1024, 2048, 4096, 8192)}
+    plans = [default] + [grid_module.grid_plan(b, n, s, k, **{knob: v})
+                         for knob, values in knobs.items() for v in values]
+    rows = []
+    with torch.inference_mode():
+        for plan in dict.fromkeys(plans):  # in order, once each
+            fn = functools.partial(ballquery_grid_cuda, *args, plan=plan)
+            check_order_model("sweep", "ballquery_grid", args, fn())
+            ms = grid_kernel_device_ms(f"grid sweep {label} {plan}", fn)
+            rows.append({"plan": plan._asdict(), "default": plan == default, "device_ms": ms})
+            log(f"[sweep] ballquery_grid {label} B={b} N={n} S={s} run={plan.run} "
+                f"capacity={plan.capacity} threshold={plan.threshold} tile={plan.tile}"
+                f"{' (default)' if plan == default else ''}: "
+                + ("device not measured" if ms is None else f"kernel {ms * 1e3:.1f} us on the "
+                   "device") + f" ({smi})")
+    timed = [r for r in rows if r["device_ms"] is not None]
+    if timed:
+        best = min(timed, key=lambda r: r["device_ms"])
+        log(f"[sweep] ballquery_grid {label}: fastest {best['plan']}, "
+            f"{best['device_ms'] * 1e3:.1f} us; the default "
+            f"{next(r['device_ms'] for r in timed if r['default']) * 1e3:.1f} us ({smi})")
     return rows
 
 
@@ -2208,6 +2389,14 @@ def phase_new_times(fused_calls, grid_calls, pred, fused, grid_pred, request, sm
             f"grid_prep {layer_ms['Path G SA1 grid_prep'][0] * 1e3:.1f} us, ballquery.cu "
             f"{layer_ms['Path G SA1 ballquery.cu'][0] * 1e3:.1f} us ({smi})")
     times["ballquery_grid"]["crossover"] = crossover_curve(xg.device, smi)
+    # the plan sweep at Path G's SA1 and at the crossover's clustered cloud
+    # (N=8192, S=2048: 300/512 of the points on one spot)
+    cloud = prep_clouds(N_GRID, torch.Generator().manual_seed(8))[1][1].to(xg.device)
+    clustered = (0.1, K, cloud, random_centers(cloud, N_GRID // 4, torch.Generator()
+                                               .manual_seed(9)))
+    times["ballquery_grid"]["plans"] = {
+        "Path G SA1": grid_sweep("Path G SA1", args, smi),
+        "clustered N=8192": grid_sweep("clustered N=8192", clustered, smi)}
 
     forwards = 3
     device = profile_device("fused profile", lambda: fused(x), forwards, "forward", smi)
@@ -2733,11 +2922,14 @@ def main():
         if name == "dense_bn_stats":
             # per bf16+SR fused train step: the sum over its 17 calls of the
             # wrapper and of the plain version at those shapes (CUDA events);
-            # the device time from the trace of that step. No single PyTorch
-            # call computes y and its statistics: F.linear (the product
-            # alone) and F.linear plus the plain statistics stand beside it
-            # per shape, in both dtypes.
+            # the device time from the trace of that step. The fp32 fused
+            # step's device time and launches (the fp32 route, 17 a step, in
+            # its trace) stand beside them. No single PyTorch call computes
+            # y and its statistics: F.linear (the product alone) and F.linear
+            # plus the plain statistics stand beside it per shape, in both
+            # dtypes.
             t = bn_times["bf16"]
+            fp32_device = bn_device["fp32"]
             summary.append({
                 "name": name, "route": "cuda", "source": k["source"],
                 "replaces": k["replaces"], "launches": sum(by_path.values()),
@@ -2746,9 +2938,21 @@ def main():
                 "bound_ms": sum(t["bound_ms"]),
                 "bound_by": t["bound_by"][max(range(17), key=t["bound_ms"].__getitem__)],
                 "library_ms": None,
-                "device_ms": None if bn_device is None else sum(bn_device),
+                "device_ms": None if bn_device["bf16"] is None else sum(bn_device["bf16"]),
+                "fp32_fused_step": {
+                    "device_ms": None if fp32_device is None else sum(fp32_device),
+                    # the launches in its trace, a step
+                    "launches": None if fp32_device is None else len(fp32_device),
+                    "ms": sum(bn_times["fp32"]["ms"]),
+                    "plain_ms": sum(bn_times["fp32"]["plain_ms"]),
+                    "bound_ms": sum(bn_times["fp32"]["bound_ms"]),
+                    "bound_simt_ms": sum(bn_times["fp32"]["bound_simt_ms"]),
+                    "bound_tc_ms": sum(bn_times["fp32"]["bound_tc_ms"]),
+                    "linear_device_ms": (None if None in bn_times["fp32"]["linear_device_ms"]
+                                         else sum(bn_times["fp32"]["linear_device_ms"]))},
                 "per_shape": {"call": [c[0] for c in bn_calls()],
-                              "device_ms_bf16": bn_device, **bn_times},
+                              "device_ms_bf16": bn_device["bf16"],
+                              "device_ms_fp32": fp32_device, **bn_times},
             })
             continue
         if name in SERVE:
@@ -2812,4 +3016,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--fp32-bn-step"]:
+        fp32_bn_step_only()
+    else:
+        main()

@@ -60,6 +60,39 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// fp32 products on the tensor cores as three TF32 products (fused_sa.cu's
+// chain, bn_stats.cu's fp32 route): a_hi b_hi + a_hi b_lo + a_lo b_hi, with
+// hi = cvt.rna.tf32(v) and lo = cvt.rna.tf32(v - hi); the dropped a_lo b_lo
+// and the lo roundings leave ~2^-22 of each product, fp32's own order.
+//
+// The bits of cvt.rna.tf32.f32(v) for a finite v: the 13 low bits rounded
+// off to nearest, ties away from zero (a carry into the exponent is the
+// round up), by integer arithmetic: the conversion unit runs 16 results a
+// clock an SM, the integer units 64.
+__device__ __forceinline__ unsigned tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo with hi, lo TF32 values: hi = rna(v), so v - hi is exact in
+// fp32, and lo = rna(v - hi).
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// d += a (16 x 8, row-major) * b (8 x 8, column-major), TF32 in, fp32 sum.
+// Fragments (g = lane / 4, t = lane % 4): a0..a3 = a(g, t), a(g + 8, t),
+// a(g, t + 4), a(g + 8, t + 4); b0, b1 = b(t, g), b(t + 4, g); d0..d3 =
+// d(g, 2t), d(g, 2t + 1), d(g + 8, 2t), d(g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 inline cudaStream_t as_stream(void* stream) {
   return static_cast<cudaStream_t>(stream);
 }

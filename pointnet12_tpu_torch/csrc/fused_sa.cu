@@ -35,7 +35,7 @@
 //      kernel scans all N in index order (first_k_scan, ballquery.cu's
 //      scan); the grid kernel scans the 27 cells around the center through
 //      grid_prep's sorted points and a bitmask of original indices
-//      (first_k_grid, ballquery_grid.cu's search), taking the centers in
+//      (neighbours.cuh::first_k_grid), taking the centers in
 //      cell order so a block's centers are neighbours.
 //   2. The block gathers the rows w[idx] - t, ReLU, into shared memory, K
 //      rows a center rounded up to 16 (the pad rows repeat the center's
@@ -130,30 +130,8 @@ __host__ __device__ __forceinline__ int chunk_cols(const Chain& ch, int nc, int 
   return cols < nc ? cols : nc;
 }
 
-// The bits of cvt.rna.tf32.f32(v) for a finite v: the 13 low bits rounded
-// off to nearest, ties away from zero (a carry into the exponent is the
-// round up), by integer arithmetic: the conversion unit runs 16 results a
-// clock an SM, the integer units 64.
-__device__ __forceinline__ unsigned tf32_rna(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-// v = hi + lo with hi, lo TF32 values: hi = rna(v), so v - hi is exact in
-// fp32, and lo = rna(v - hi).
-__device__ __forceinline__ void split_tf32(float v, unsigned& hi, unsigned& lo) {
-  hi = tf32_rna(v);
-  lo = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));
-}
-
-// d += a (16 x 8, row-major) * b (8 x 8, column-major), TF32 in, fp32 sum
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using pn12::mma_tf32;
+using pn12::split_tf32;
 
 // acc[i][j] += a (rows i * 16 .., stride ld, kpad columns) @ b (kpad rows,
 // stride ldw; columns j * 8 ..), i < MT, j < NT, as three TF32 products.

@@ -29,6 +29,7 @@ PER_LANE = (0, 1, 2)
 WARP_FORM_MAX_N = 256
 TWO_PER_LANE_FROM = 16384
 WARPS = 4096
+MODEL_PAIRS = 2**25  # (center, point) pairs first_k_in_plan_order takes at once
 
 
 class BallQueryPlan(NamedTuple):
@@ -90,6 +91,10 @@ def first_k_in_plan_order(xyz: torch.Tensor, centers: torch.Tensor, r2: float,
     -> (B, S, k) int32."""
     B, N, _ = xyz.shape
     S = centers.shape[1]
+    step = max(1, MODEL_PAIRS // (B * N))  # centers at a time: (B, step, N, 3) differences
+    if S > step:
+        return torch.cat([first_k_in_plan_order(xyz, centers[:, i:i + step], r2, k, plan)
+                          for i in range(0, S, step)], dim=1)
     d = centers[:, :, None, :] - xyz[:, None, :, :]
     hit = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2] <= r2
     merged = torch.zeros((B, S, k), dtype=torch.int64, device=xyz.device)

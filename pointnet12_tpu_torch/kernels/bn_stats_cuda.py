@@ -1,45 +1,36 @@
 """Wrapper of ``csrc/bn_stats.cu``: Dense + BN statistics on the card.
 
-Replaces ``pointnet12_tpu/kernels/bn_stats_fused.py::_pallas_fwd``. bf16
-operands run on the tensor cores (``mma.sync``), fp32 ones on the SIMT
-units. The plain version is ``ops/bn_stats.py::dense_bn_stats_torch``; the
-kernel's statistics are summed in a fixed order, so they are the same bits
-from run to run. ``dense_bn_stats_cuda.launches`` counts the launches.
+Replaces ``pointnet12_tpu/kernels/bn_stats_fused.py::_pallas_fwd``. Both
+dtypes run on the tensor cores (``mma.sync``): bf16 operands as bf16
+products, fp32 ones as three TF32 products. The plain version is
+``ops/bn_stats.py::dense_bn_stats_torch``; the kernel's statistics are
+summed in a fixed order (:func:`stats_in_kernel_order`), so they are the
+same bits from run to run. ``dense_bn_stats_cuda.launches`` counts the
+launches.
 """
 
 import torch
 
 from pointnet12_tpu_torch.kernels import build
 
-MAX_COLUMN_TILES = 65535  # the fp32 kernel puts the column tiles on gridDim.y
-MAX_BLOCKS = 2**31 - 1  # the bf16 kernel's items, on a grid of gridDim.x blocks
-MMA_ROWS = 128  # rows of the bf16 kernel's row tile (kMmaRows)
+MAX_ITEMS = 2**31 - 1  # the kernel's (row tile, column tile) items, counted in an int
+# rows of the kernel's row tile (kMmaRows): the workspace holds ceil(R /
+# MMA_ROWS) partials, and csrc/bn_stats.cu refuses another size
+MMA_ROWS = 128
 WARPS_M = 4  # its warps along the rows, 32 rows each
 FINAL_LANES = 128  # lanes a column of the finalize pass (kFinalLanes)
 
 
-def row_tile(co: int, bf16: bool) -> int:
-    """Rows of ``x`` per row tile, so the workspace holds ``ceil(R / row_tile)``
-    partials: 128 for the bf16 tensor-core kernel; for the fp32 one 64 when
-    the block covers 64 output columns (``co % 64 == 0``), else 128 with 32
-    columns (4096 outputs a block). ``csrc/bn_stats.cu`` applies the same
-    rule and refuses a workspace of another size."""
-    return 64 if not bf16 and co % 64 == 0 else MMA_ROWS
-
-
-def column_tiles(co: int, bf16: bool) -> int:
-    """Column tiles of the kernel's grid: of 32, 64 or 128 columns (the least
-    that covers ``co``) for bf16, of 64 or 32 for fp32."""
-    if bf16:
-        bn = 32 if co <= 32 else 64 if co <= 64 else 128
-    else:
-        bn = 64 if co % 64 == 0 else 32
+def column_tiles(co: int) -> int:
+    """Column tiles of the kernel's items, in either dtype: of 32, 64 or 128
+    columns, the least that covers ``co``."""
+    bn = 32 if co <= 32 else 64 if co <= 64 else 128
     return -(-co // bn)
 
 
 def stats_in_kernel_order(y: torch.Tensor):
-    """``(mean, var)`` fp32 of ``y (..., Co)`` summed in the bf16 kernel's
-    fixed order, on ``y``'s device, in plain PyTorch fp32 ops (each rounded
+    """``(mean, var)`` fp32 of ``y (..., Co)`` summed in the kernel's fixed
+    order (either dtype), on ``y``'s device, in plain PyTorch fp32 ops (each rounded
     as ``__fadd_rn`` rounds):
 
     1. a thread sums its 4 rows of a column, rows ``32 wm + g + 8 q`` of
@@ -102,11 +93,9 @@ def dense_bn_stats_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     r = x.numel() // ci if ci else 0
     if r == 0 or ci == 0 or co == 0:
         raise ValueError(f"dense_bn_stats: empty operands x {shape}, weight {(co, ci)}")
-    bf16 = x.dtype == torch.bfloat16
-    tiles = -(-r // row_tile(co, bf16))
-    cols = column_tiles(co, bf16)
-    if r >= 2**31 or (tiles * cols > MAX_BLOCKS if bf16 else cols > MAX_COLUMN_TILES):
-        raise ValueError(f"dense_bn_stats: R={r}, Co={co} exceed the kernel's grid")
+    tiles = -(-r // MMA_ROWS)
+    if r >= 2**31 or tiles * column_tiles(co) > MAX_ITEMS:
+        raise ValueError(f"dense_bn_stats: R={r}, Co={co} exceed the kernel's items")
     y = torch.empty(shape[:-1] + (co,), dtype=x.dtype, device=x.device)
     partials = torch.empty((tiles, 2, co), dtype=torch.float32, device=x.device)
     mean = torch.empty((co,), dtype=torch.float32, device=x.device)
@@ -114,7 +103,7 @@ def dense_bn_stats_cuda(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
     build.launch(
         "dense_bn_stats", x.device, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         y.data_ptr(), partials.data_ptr(), mean.data_ptr(), var.data_ptr(), r, ci, co,
-        tiles, int(bf16),
+        tiles, int(x.dtype == torch.bfloat16),
     )
     dense_bn_stats_cuda.launches += 1
     return y, mean, var

@@ -60,7 +60,8 @@ _SIGNATURES = {
     "pn12_dense_bn_stats": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "pn12_grid_prep": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P),
     "pn12_ballquery_grid": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _I,
+        _P,
     ),
     "pn12_fused_sa_dense": (
         _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, ctypes.c_float, _P,

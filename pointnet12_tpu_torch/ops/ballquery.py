@@ -10,7 +10,7 @@ to the voxel-grid kernel (``csrc/ballquery_grid.cu``), every other shape
 to the index-order scan (``csrc/ballquery.cu``, which stands in for both
 of JAX's other kernels). The 8192 crossover was measured on the TPU; the
 card's own curve is in PERF.md, and the choice it calls for is ROADMAP
-Queue 1's first item.
+Queue 2, row 6.
 """
 
 import numpy as np

@@ -29,6 +29,7 @@ from pointnet12_tpu_torch.kernels import selfcheck
 from pointnet12_tpu_torch.kernels.fused_sa_cuda import (
     fused_sa_eval_dense_cuda, fused_sa_eval_grid_cuda,
 )
+from pointnet12_tpu_torch.kernels import grid_cuda
 from pointnet12_tpu_torch.kernels.grid_cuda import ballquery_grid_cuda, grid_prep_cuda
 from pointnet12_tpu_torch.models import get_model
 from pointnet12_tpu_torch.nn import set_abstraction
@@ -170,6 +171,117 @@ def test_grid_prep_carries_the_grid_kernels_search(clustered):
     ok = selfcheck.boundary_ok_mask(radius, _t(xyz), _t(centers)).numpy()
     assert ok.mean() > 0.5
     np.testing.assert_array_equal(got[ok], want[ok])
+
+
+# ---------------------------------------------------------------- the grid ball query's search
+# csrc/ballquery_grid.cu at a plan (kernels/grid_cuda.py::grid_plan), written
+# out in plain ops by first_k_grid_in_plan_order; the card holds the kernel to
+# the contract bit for bit (chip_smoke.py).
+
+# (run, capacity, threshold, tile) and radius: the default plan; lists that
+# overflow at r=0.3 (~116 hits a center) and a union streamed 64 points at a
+# time; a threshold of one point in a center's own cell
+GRID_PLANS = {"default": (None, 0.1), "overflow": ((32, 64, grid_cuda.NO_THRESHOLD, 64), 0.3),
+              "threshold": ((16, 48, 1, 256), 0.1)}
+
+
+def _lattice_clouds(seed, b, n, clustered):
+    """Clouds on the 1/64 grid, where the direct and the expansion form of
+    d2 are both exact, so JAX's kernel and the direct form agree on every
+    row; with ``clustered`` the last cloud has 3/4 of its points in the
+    corner box [0, 3/64]^3 and 1/8 of them on one lattice point."""
+    rng = np.random.RandomState(seed)
+    xyz = rng.randint(0, 65, size=(b, n, 3)) / 64.0
+    if clustered:
+        xyz[-1, : 3 * n // 4] = rng.randint(0, 4, size=(3 * n // 4, 3)) / 64.0
+        xyz[-1, : n // 8] = 20 / 64
+    return xyz.astype(np.float32)
+
+
+def _grid_search(xyz, centers, radius, k, given):
+    """The search in plan order at the plan ``given`` (None: the default),
+    its paths, and the paths of ``center_paths`` (what chip_smoke.py logs on
+    the card) on the same grid."""
+    b, n, s = xyz.shape[0], xyz.shape[1], centers.shape[1]
+    plan = grid_cuda.grid_plan(b, n, s, k, *(given or ()))
+    g = grid.grid_prep(radius, _t(xyz), _t(centers))
+    r2 = float(np.float32(radius * radius))
+    idx, path = grid_cuda.first_k_grid_in_plan_order(_t(xyz), _t(centers), r2, k, g, plan)
+    d = centers[:, :, None, :] - xyz[:, None, :, :]
+    hits = _t(((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+               <= np.float32(r2)).sum(-1))
+    assert torch.equal(grid_cuda.center_paths(g, hits, plan), path)
+    return idx, path
+
+
+@pytest.mark.parametrize("plan_name", list(GRID_PLANS))
+@pytest.mark.parametrize("clustered", [False, True])
+def test_grid_search_in_plan_order_equals_jax_kernel(clustered, plan_name):
+    """The new search at each plan against JAX's ``ballquery_grid``
+    (interpreted), every row equal, on 1/64-grid clouds (B=2, N=1024,
+    S=128, K=16); the plans send centers down each path (the list, the
+    list compacted over its capacity, the scan over the threshold)."""
+    xyz = _lattice_clouds(50, 2, 1024, clustered)
+    centers = _centers(xyz, 128, 51)
+    given, radius = GRID_PLANS[plan_name]
+    want = np.asarray(jax_grid.ballquery_grid(radius, 16, jnp.asarray(xyz),
+                                              jnp.asarray(centers), interpret=True))
+    idx, path = _grid_search(xyz, centers, radius, 16, given)
+    np.testing.assert_array_equal(idx.numpy(), want)
+    counts = torch.bincount(path.flatten().long(), minlength=3).tolist()
+    print(f"clustered={clustered} {plan_name}: centers by path (list, over the threshold, "
+          f"over the capacity) {counts}")
+    assert counts[grid_cuda.LIST] > 0
+    if plan_name == "overflow":
+        assert counts[grid_cuda.OVER_CAPACITY] > 0
+    if plan_name == "threshold" or clustered and plan_name == "default":
+        assert counts[grid_cuda.OVER_THRESHOLD] > 0
+
+
+@pytest.mark.parametrize("plan_name", list(GRID_PLANS))
+@pytest.mark.parametrize("clustered", [False, True])
+def test_grid_search_in_plan_order_equals_plain_ball_query(clustered, plan_name):
+    """On continuous clouds (:func:`_clouds`: uniform, and a corner of 3/4
+    of the points with 1/8 on one spot) the search at each plan gives the
+    plain ball query's rows off the radius boundary, in the style of
+    :func:`test_grid_prep_carries_the_grid_kernels_search`."""
+    xyz = _clouds(52, 2, 1024, clustered)
+    centers = _centers(xyz, 128, 53)
+    given, radius = GRID_PLANS[plan_name]
+    radius += 0.05
+    idx, _ = _grid_search(xyz, centers, radius, 16, given)
+    want = ballquery.ballquery_torch(radius, 16, _t(xyz), _t(centers)).numpy()
+    ok = selfcheck.boundary_ok_mask(radius, _t(xyz), _t(centers)).numpy()
+    assert ok.mean() > 0.5
+    np.testing.assert_array_equal(idx.numpy()[ok], want[ok])
+
+
+@pytest.mark.parametrize("b,n,s,k,given,want", [
+    # Path G's SA1: 16 x 64 runs of 16 centers
+    (16, 8192, 1024, 32, {}, (16, 64, 128, 2048)),
+    # few centers: runs halved down to a warp's worth
+    (1, 32768, 8192, 32, {}, (16, 64, 512, 2048)),
+    (2, 1024, 128, 16, {}, (8, 64, 16, 2048)),
+    # K = 128: lists of twice K
+    (16, 8192, 1024, 128, {}, (16, 256, 128, 2048)),
+    (16, 8192, 1024, 32, {"run": 64, "capacity": 64, "threshold": 0, "tile": 32},
+     (64, 64, 0, 32)),
+])
+def test_grid_plan(b, n, s, k, given, want):
+    """``grid_plan``'s defaults and overrides, and its shared memory as
+    ``csrc/ballquery_grid.cu`` computes it; a plan past 227 KB, with a
+    capacity under K or not a multiple of 4, or with an empty run or tile
+    is refused."""
+    plan = grid_cuda.grid_plan(b, n, s, k, **given)
+    assert plan[:4] == want
+    run, capacity, _, tile = want
+    assert plan.shared_bytes == 16 * (tile + run) + 4 * (
+        run * (capacity + 34) + 8 * capacity + 4 * grid.G**2 + 1 + grid.G**3 + 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        grid_cuda.grid_plan(b, n, s, k, tile=16384)
+    for key, bad in (("run", 0), ("capacity", k - 4), ("capacity", k + 2), ("tile", 0)):
+        with pytest.raises(ValueError, match=key):
+            grid_cuda.grid_plan(b, n, s, k, **{key: bad})
 
 
 # ---------------------------------------------------------------- routes

@@ -47,7 +47,7 @@ from pointnet12_tpu.train.precise_bn import recompute_batch_stats as jax_precise
 
 from pointnet12_tpu_torch import infer
 from pointnet12_tpu_torch.kernels.bn_stats_cuda import (
-    MMA_ROWS, column_tiles, dense_bn_stats_cuda, row_tile, stats_in_kernel_order,
+    MMA_ROWS, column_tiles, dense_bn_stats_cuda, stats_in_kernel_order,
 )
 from pointnet12_tpu_torch.models import model_precision_kwargs
 from pointnet12_tpu_torch.nn import mlp as port_mlp
@@ -57,6 +57,7 @@ from pointnet12_tpu_torch.ops.bn_stats import dense_bn_stats, dense_bn_stats_tor
 from pointnet12_tpu_torch.train import loop, losses
 from pointnet12_tpu_torch.train.precise_bn import recompute_batch_stats
 from pointnet12_tpu_torch.utils import jax_import
+from tests.test_torch_port_fused_sa import split_tf32, tf32_rna
 from tests.test_torch_port_ops import perturb_variables
 from tests.test_torch_port_train import (
     flax_grads,
@@ -312,16 +313,17 @@ def test_dense_bn_stats_kernel_refuses_cpu_tensors():
 BN_STATS_TOL = 1e-5  # of the largest mean |y| and E[y^2]: chip_smoke.py's bar
 
 
-def _bn_inputs(rng, r, ci, co, mean3):
-    """bf16 operands at activation scale, or with every column of y at mean
-    3 standard deviations off zero (the one-pass variance's hard case), as
-    ``chip_smoke.py::bn_stats_inputs`` makes them on the card."""
+def _bn_inputs(rng, r, ci, co, mean3, dtype=torch.bfloat16):
+    """Operands in ``dtype`` (the bias fp32) at activation scale, or with
+    every column of y at mean 3 standard deviations off zero (the one-pass
+    variance's hard case), as ``chip_smoke.py::bn_stats_inputs`` makes them
+    on the card."""
     x = rng.randn(r, ci).astype(np.float32)
     if not mean3:
         x = np.maximum(x, 0.0)
     w = (rng.randn(co, ci) * np.sqrt(2.0 / ci)).astype(np.float32)
     b = (3.0 * np.linalg.norm(w, axis=1) if mean3 else 0.1 * rng.randn(co)).astype(np.float32)
-    return _t(x).bfloat16(), _t(w).bfloat16(), _t(b)
+    return _t(x).to(dtype), _t(w).to(dtype), _t(b)
 
 
 @pytest.mark.parametrize("r,ci,co,mean3", [
@@ -368,16 +370,67 @@ def test_fixed_order_statistics_ignore_rows_past_r():
     assert float((var.double() - yd.var(0, unbiased=False)).abs().max()) < 1e-5
 
 
+# the 12 distinct (Ci, Co) of the 17 dense_bn_stats calls of a fused train
+# step (chip_smoke.py::bn_calls): SA1-SA4's two grouped layers, FP4-FP1
+BN_WIDTHS = [(32, 32), (32, 64), (64, 64), (64, 128), (128, 128), (128, 256), (256, 256),
+             (256, 512), (768, 256), (384, 256), (320, 256), (256, 128)]
+
+
+def three_tf32_dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` from three TF32 products, as the fp32 route of
+    ``csrc/bn_stats.cu`` forms it: ``x_hi w_hi + (x_hi w_lo + x_lo w_hi)``
+    (the kernel adds the small products first within each k-step; plain
+    ops sum each product whole)."""
+    xh, xl = split_tf32(x)
+    wh, wl = split_tf32(w)
+    return xh @ wh.T + (xh @ wl.T + xl @ wh.T)
+
+
+@pytest.mark.parametrize("mean3", [False, True])
+@pytest.mark.parametrize("ci,co", BN_WIDTHS)
+def test_three_tf32_products_meet_the_fp32_bars(ci, co, mean3):
+    """The fp32 route's arithmetic in plain ops, at every width of the 17
+    calls with R = 1000 rows (a ragged row tile): y from three TF32
+    products plus the bias, its statistics in the kernel's order
+    (``stats_in_kernel_order``), against JAX's ``dense_bn_stats`` (its
+    jnp reference route) on the same numpy inputs: y within 1e-5 of the
+    largest |y| and the statistics within ``BN_STATS_TOL`` of their scale,
+    chip_smoke.py phase 8's fp32 bars, at activation scale and with every
+    column at mean/std 3. One-pass TF32 (``x_hi w_hi`` alone), which the
+    kernel does not do, misses the y bar: 16-41x past it on these inputs."""
+    x, w, b = _bn_inputs(np.random.RandomState(ci * co), 1000, ci, co, mean3, torch.float32)
+    jy, jm, jv = (np.asarray(a) for a in jax_dense_bn_stats(
+        jnp.asarray(x.numpy()), jnp.asarray(w.numpy().T), jnp.asarray(b.numpy()),
+        out_dtype=jnp.float32, impl="jnp"))
+    y = three_tf32_dense(x, w) + b
+    mean, var = stats_in_kernel_order(y)
+    largest = float(np.abs(jy).max())
+    y_err = float(np.abs(y.numpy() - jy).max())
+    one_err = float(np.abs((tf32_rna(x) @ tf32_rna(w).T + b).numpy() - jy).max())
+    yd = y.double()
+    m_bar = BN_STATS_TOL * float(yd.abs().mean(0).max())
+    v_bar = BN_STATS_TOL * float((yd * yd).mean(0).max())
+    own_m, own_v = yd.mean(0), yd.var(0, unbiased=False)
+    print(f"Ci={ci} Co={co} mean3={mean3}: y {y_err / largest:.2e} of the largest |y| "
+          f"(bar 1e-5), one TF32 product {one_err / largest:.2e}; mean "
+          f"{float((mean.double() - own_m).abs().max()) / m_bar:.3f}, var "
+          f"{float((var.double() - own_v).abs().max()) / v_bar:.3f} of their bars")
+    assert y_err <= 1e-5 * largest < one_err
+    assert float((mean.double() - own_m).abs().max()) <= m_bar
+    assert float((var.double() - own_v).abs().max()) <= v_bar
+    assert_stats_close((mean.numpy(), var.numpy()), (jm, jv), jy)
+
+
 @pytest.mark.parametrize("co,bf16,rows,cols", [
     (32, True, 128, 1), (64, True, 128, 1), (128, True, 128, 1), (256, True, 128, 2),
-    (512, True, 128, 4), (48, True, 128, 1), (64, False, 64, 1), (48, False, 128, 2),
+    (512, True, 128, 4), (48, True, 128, 1), (64, False, 128, 1), (48, False, 128, 1),
 ])
 def test_bn_stats_grid_plan(co, bf16, rows, cols):
-    """The wrapper's workspace plan matches ``csrc/bn_stats.cu``: 128-row
-    tiles and 32/64/128-column tiles for bf16, the SIMT kernel's 64 x 64 or
-    128 x 32 tiles for fp32."""
-    assert row_tile(co, bf16) == rows
-    assert column_tiles(co, bf16) == cols
+    """The wrapper's workspace plan matches ``csrc/bn_stats.cu``: one
+    tensor-core kernel for both dtypes, 128-row tiles and 32/64/128-column
+    tiles (the least that covers Co), so bf16 and fp32 share the plan."""
+    assert MMA_ROWS == rows
+    assert column_tiles(co) == cols
 
 
 # ---------------------------------------------------------------- modules in bf16
